@@ -9,25 +9,46 @@ Phases, each printed with its time; any failure exits non-zero:
   1. device  -- requires torch.cuda; prints the card's name and power
      limit as nvidia-smi reports them.
   2. build   -- builds the native host library and the CUDA kernels
-     from the checkout's sources (nvcc, sm_90a).
-  3. kernels -- runs each of the three kernels and its plain PyTorch
-     version on the same inputs at main-path shapes (64 streams, 4096
-     steps, order-0 and order-1 at shift 10 and 12, ragged lengths, a
-     single-symbol stream) and requires bit-identical results (the
+     from the checkout's sources (nvcc, sm_90a, one process per source).
+  3. kernels -- runs each of the seven kernels and its plain PyTorch
+     version on the same inputs and requires bit-identical results (the
      tolerance is zero: this is integer entropy coding); times both on
-     the card with CUDA events.
-  4. e2e     -- makes a FASTQ corpus with seeded numpy (150 bp reads,
-     random-walk qualities) and drives the port's CLI
-     (fqzcomp5_tpu_torch.cli -e cuda) at -1 and -3: encode, decode,
-     cmp; decodes the same archives with the host engine's CLI; counts
-     the kernel launches of that run; and encodes a 4 MB prefix both on
-     the card and on the CPU (plain versions), requiring equal archives.
+     the card with CUDA events.  rANS: 64 streams, 4096 steps, order-0
+     and order-1 at shift 10 and 12, ragged lengths, a single-symbol
+     stream.  Model evolution: 65,536 contexts x 4,096 occurrences at
+     128 slots, 4 x 4,096 at 256 slots, 2^20 TinyModels x 256.  Range
+     coder: 16 streams x 4,096 steps in two chunks with the state
+     carried.  Then times the evolve-256 and range-coder kernels alone
+     at main-path shapes (one context of about 450k occurrences; 12
+     streams of 2^24 steps).
+  4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
+     random-walk qualities) and encodes the seq and qual of its first
+     10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
+     card; the payloads must equal the native host codecs'.
+  5. e2e     -- drives the port's CLI (fqzcomp5_tpu_torch.cli -e cuda)
+     at -1, -3 and -5, each path with every launch count set to 0 just
+     before it and read just after: encode, decode, cmp; decodes the
+     same archives with the host engine's CLI.  Every kernel a path
+     runs must have launched in it (the encode walk at every preset, the
+     four adaptive kernels at -5, and each rANS decoder the decode path
+     handed a batch).  Reports the -5 peak device memory, and encodes a
+     4 MB prefix at -1 and a 1 MB prefix at -5 both on the card and on
+     the CPU (plain versions), requiring equal archives.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile [--level -5] [--out DIR]
+
+builds the kernels, makes the same corpus and encodes it once at the
+given preset under cProfile and torch.profiler: writes the two tables to
+DIR (default build/profile/) and prints the device's busy time and idle
+share, the kernels' device times and the host functions that take the
+most time.
 """
 
 from __future__ import annotations
 
+import argparse
 import filecmp
 import json
 import os
@@ -39,10 +60,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS_MB = 256
-PREFIX_MB = 4
 SEED = 42
 B_STREAMS = 64
 T_STEPS = 4096
+# (preset, kernels its encode always launches)
+PATHS = (("-1", ("encode_walk",)), ("-3", ("encode_walk",)),
+         ("-5", ("encode_walk", "evolve_128", "evolve_256", "tiny_evolve",
+                 "rc_encode_walk")))
+# (preset, prefix MB) encoded on the card and on the CPU
+PREFIXES = (("-1", 4), ("-5", 1))
 
 
 def log(msg: str) -> None:
@@ -241,8 +267,126 @@ def kernels_vs_plain(np, torch, dev):
     return res
 
 
+def adaptive_kernels_vs_plain(np, torch, dev):
+    """The model-evolution and range-coder kernels against their plain
+    versions (zero tolerance), then the evolve-256 and range-coder
+    kernels alone at main-path shapes."""
+    from fqzcomp5_tpu_torch.ops import (fqz_model_torch, model_cuda,
+                                        rc_cuda, rc_torch)
+
+    rng = np.random.default_rng(SEED + 1)
+    res = {"evolve_128": [], "evolve_256": [], "tiny_evolve": [],
+           "rc_encode_walk": []}
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def model_case(C, T, max_sym):
+        counts = rng.integers(1, T + 1, C).astype(np.int32)
+        counts[0] = T
+        ms = rng.integers(2, max_sym + 1, C).astype(np.int32)
+        ms[0] = max_sym
+        z = rng.zipf(1.3, (C, T))
+        sp = np.minimum(z - 1, ms[:, None] - 1).astype(np.uint8)
+        sp[1] = ms[1] - 1
+        return put(sp), put(counts), put(ms), int(counts.sum())
+
+    def record(name, label, err, k_ms, p_ms, steps):
+        res[name].append((label, err, k_ms, p_ms))
+        log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
+            f"({steps / k_ms / 1e3:.3f} M steps/s)  plain {p_ms:.3f} ms")
+
+    for name, fn, cap, (C, T, M) in (
+            ("evolve_128", model_cuda.evolve_128, 128, (65536, 4096, 96)),
+            ("evolve_256", model_cuda.evolve_256, 256, (4, 4096, 256))):
+        sp, ct, ms, steps = model_case(C, T, M)
+        k_ms, k_out = _time(lambda: fn(sp, ct, ms), 3)
+        p_ms, p_out = _time(
+            lambda: fqz_model_torch.evolve_ref(sp, ct, ms, cap), 1)
+        record(name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms, p_ms,
+               steps)
+    for nsym in (4, 2):
+        C, T = 1 << 20, 256
+        counts = put(rng.integers(0, T + 1, C).astype(np.int32))
+        sp = put(rng.integers(0, nsym, (C, T)).astype(np.uint8))
+        k_ms, k_out = _time(
+            lambda: model_cuda.tiny_evolve(sp, counts, nsym), 3)
+        p_ms, p_out = _time(
+            lambda: fqz_model_torch.tiny_evolve_ref(sp, counts, nsym), 1)
+        record("tiny_evolve", f"nsym={nsym} C={C} T={T}",
+               _max_err(k_out, p_out), k_ms, p_ms, int(counts.sum()))
+
+    # range coder: 16 ragged streams of up to 4096 steps, two chunks
+    B, T, chunk = 16, 4096, 2048
+    tot = rng.integers(2, 65519, (B, T))
+    freq = np.minimum(rng.integers(1, 65519, (B, T)), tot)
+    cum = (rng.random((B, T)) * (tot - freq + 1)).astype(np.int64)
+    # least-probable top symbols of a power-of-two total: one 0xFF run
+    # deferred across the chunk boundary
+    tot[3], freq[3], cum[3] = 1 << 15, 1, (1 << 15) - 1
+    tot[4] = rng.integers(2, 300, T)            # TinyModel-like totals
+    freq[4] = np.maximum(1, tot[4] // 3)
+    cum[4] = 0
+    lens = rng.integers(0, T + 1, B)
+    lens[:5] = T
+    cf = put(((cum << 16) | freq).astype(np.uint32).view(np.int32)
+             .reshape(-1))
+    tt = put(tot.astype(np.int32).reshape(-1))
+    st_k = st_p = rc_torch.init_state(B, dev)
+    err = 0
+    k_tot = p_tot = 0.0
+    for t0 in (0, chunk):
+        n = put(np.clip(lens - t0, 0, chunk).astype(np.int32))
+        off = put(np.arange(B, dtype=np.int64) * T + np.minimum(t0, lens))
+        cap = rc_torch.cap_for(chunk, int(st_k[3].max()))
+        st_in = st_k
+        k_ms, k_out = _time(
+            lambda: rc_cuda.encode_walk(cf, tt, off, n, st_in, cap), 3)
+        p_ms, p_out = _time(lambda: rc_torch.encode_walk_ref(
+            cf, tt, off, n, st_p, cap), 1)
+        err = max(err, _max_err(k_out[1:], p_out[1:]))
+        totals = k_out[1].cpu().numpy()
+        for b in range(B):
+            nb = int(totals[b])
+            err = max(err, _max_err([k_out[0][b, :nb]], [p_out[0][b, :nb]]))
+        st_k, st_p = k_out[2], p_out[2]
+        k_tot += k_ms
+        p_tot += p_ms
+    record("rc_encode_walk", f"B={B} T={T} in 2 chunks", err, k_tot, p_tot,
+           int(lens.sum()))
+
+    # the kernels alone at main-path shapes
+    sp = put(np.minimum(rng.zipf(1.2, (4, 450_000)) - 1, 255)
+             .astype(np.uint8))
+    ct = put(np.full(4, 450_000, np.int32))
+    ms = put(np.full(4, 256, np.int32))
+    k_ms, _ = _time(lambda: model_cuda.evolve_256(sp, ct, ms), 1)
+    log(f"  evolve_256 main-path shape C=4 T=450000: {k_ms:.3f} ms "
+        f"({4 * 450_000 / k_ms / 1e3:.3f} M steps/s)")
+    del sp
+    B, T = 12, 1 << 24
+    tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32)
+    freq = torch.minimum(torch.randint(1, 65519, (B * T,), device=dev,
+                                       dtype=torch.int32), tot)
+    cum = (torch.rand(B * T, device=dev) * (tot - freq + 1)).to(torch.int32)
+    cf = (cum << 16) | freq
+    off = torch.arange(B, device=dev, dtype=torch.int64) * T
+    n = torch.full((B,), T, device=dev, dtype=torch.int32)
+    st = rc_torch.init_state(B, dev)
+    cap = rc_torch.cap_for(T, 0)
+    k_ms, _ = _time(lambda: rc_cuda.encode_walk(cf, tot, off, n, st, cap), 1)
+    log(f"  rc_encode_walk main-path shape B={B} T={T}: {k_ms:.3f} ms "
+        f"({B * T / k_ms / 1e3:.3f} M steps/s)")
+    for name, rows in res.items():
+        bad = [r for r in rows if r[1] != 0]
+        if bad:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{bad}")
+    return res
+
+
 # ---------------------------------------------------------------------
-# phase 4: corpus and the CLI runs
+# phases 4-5: corpus, the adaptive batch and the CLI runs
 
 def make_corpus(path: str, target_mb: int, np) -> int:
     """FASTQ of 150 bp reads sampled from a random 1 Mbp reference, with
@@ -292,7 +436,177 @@ def same(a: str, b: str) -> None:
         raise AssertionError(f"{a} and {b} differ")
 
 
+def e2e(src: str, nbytes: int, work: str, lvl: str) -> None:
+    """Encode src at preset lvl through the port's CLI, decode it with
+    the port and with the host engine, and require both to equal src."""
+    comp = os.path.join(work, f"c{lvl}.fqz5")
+    out = os.path.join(work, f"o{lvl}.fastq")
+    t1 = time.monotonic()
+    run_cli(["-e", "cuda", lvl, "-V", src, comp])
+    enc_s = time.monotonic() - t1
+    t1 = time.monotonic()
+    run_cli(["-e", "cuda", "-d", "-V", comp, out])
+    dec_s = time.monotonic() - t1
+    same(src, out)
+    os.remove(out)
+    t1 = time.monotonic()
+    # without -e cuda the port's CLI hands the command to the host engine
+    subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
+                    "-d", "-V", comp, out], cwd=ROOT, check=True)
+    host_s = time.monotonic() - t1
+    same(src, out)
+    os.remove(out)
+    csize = os.path.getsize(comp)
+    os.remove(comp)
+    log(f"e2e {lvl}: {nbytes} -> {csize} bytes; encode {enc_s:.3f} s = "
+        f"{nbytes / enc_s / 1e6:.2f} MB/s, decode {dec_s:.3f} s = "
+        f"{nbytes / dec_s / 1e6:.2f} MB/s; host-engine decode {host_s:.3f} s;"
+        f" both decodes match the source")
+
+
+def adaptive_vs_host(src: str, dev) -> None:
+    """The first 10 MB block's seq and qual under SEQ10, SEQ12B, FQZ1 and
+    FQZ3 as one adaptive batch on the card, against the native host
+    codecs."""
+    from fqzcomp5_tpu import fastq
+    from fqzcomp5_tpu.codecs import host
+    from fqzcomp5_tpu_torch.ops import adaptive_batch
+
+    fq = fastq.Parser(fastq.open_input(src)).next_batch(10_000_000)
+    jobs = [("seq", fq.seq_buf, fq.lens, 0, 10),
+            ("seq", fq.seq_buf, fq.lens, 1, 12),
+            ("fqz", fq.qual_buf, fq.lens, fq.flags, fq.seq_buf, 1),
+            ("fqz", fq.qual_buf, fq.lens, fq.flags, fq.seq_buf, 3)]
+    t1 = time.monotonic()
+    got = adaptive_batch.encode_adaptive_batch(jobs, dev)
+    dev_s = time.monotonic() - t1
+    t1 = time.monotonic()
+    want = [host.seq_encode(*j[1:]) if j[0] == "seq"
+            else host.fqz_compress(*j[1:]) for j in jobs]
+    host_s = time.monotonic() - t1
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"adaptive job {k} ({jobs[k][0]}): card "
+                                 "payload differs from the host codec's")
+    log(f"adaptive batch of the first block ({len(fq.seq_buf)} seq + "
+        f"{len(fq.qual_buf)} qual bytes, 4 jobs): card {dev_s:.3f} s, host "
+        f"codecs {host_s:.3f} s; payloads {[len(g) for g in got]} equal")
+
+
+def card_vs_cpu(src: str, work: str, lvl: str, mb: int) -> None:
+    """Encode a prefix of src at lvl on the card (CLI) and on the CPU
+    (plain versions, in-process) and require equal archives."""
+    import torch
+    from fqzcomp5_tpu_torch import cli, cuda_driver
+
+    pre = os.path.join(work, "prefix.fastq")
+    prefix_copy(src, pre, mb * 1_000_000)
+    gpu_c = os.path.join(work, "prefix.gpu.fqz5")
+    cpu_c = os.path.join(work, "prefix.cpu.fqz5")
+    run_cli(["-e", "cuda", lvl, "-V", pre, gpu_c])
+    arg, _, _ = cli.parse_args([lvl, "-V"])
+    t1 = time.monotonic()
+    with open(cpu_c, "wb") as fp:
+        cuda_driver.encode_file(pre, fp, arg, cuda_driver.Timings(),
+                                torch.device("cpu"))
+    same(gpu_c, cpu_c)
+    log(f"{mb} MB prefix at {lvl}: card and CPU (plain versions) archives "
+        f"are equal (CPU encode {time.monotonic() - t1:.3f} s)")
+    for p in (pre, gpu_c, cpu_c):
+        os.remove(p)
+
+
+def _merge_seconds(spans) -> float:
+    """Seconds covered by the union of (start_us, end_us) spans."""
+    busy = 0.0
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
+def profile_encode(src: str, work: str, lvl: str, out_dir: str) -> None:
+    """Encode src at lvl through the port's CLI under cProfile and
+    torch.profiler; write both tables to out_dir and print the device's
+    busy time, its idle share, per-kernel device time and the host
+    functions that take the most time."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    comp = os.path.join(work, "profile.fqz5")
+    cp = cProfile.Profile()
+    t1 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        cp.enable()
+        run_cli(["-e", "cuda", lvl, src, comp])
+        cp.disable()
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    dev = [e for e in tp.events() if e.device_type == DeviceType.CUDA]
+    busy = _merge_seconds((e.time_range.start, e.time_range.end)
+                          for e in dev)
+    log(f"profile {lvl}: {os.path.getsize(src)} -> {os.path.getsize(comp)} "
+        f"bytes; wall {wall:.3f} s (profiled); device busy {busy:.3f} s, "
+        f"idle {100 * (1 - busy / wall):.1f}% ({len(dev)} device events)")
+    per = {}
+    for e in dev:
+        n, us = per.get(e.name, (0, 0.0))
+        per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    log("device time by kernel or copy (s, launches):")
+    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:15]:
+        log(f"  {us / 1e6:10.3f}  {n:6d}  {name[:90]}")
+    with open(os.path.join(out_dir, "torch_profile.txt"), "w") as fp:
+        fp.write(tp.key_averages().table(sort_by="self_cuda_time_total",
+                                         row_limit=40))
+    buf = io.StringIO()
+    st = pstats.Stats(cp, stream=buf)
+    st.sort_stats("cumulative").print_stats(60)
+    st.sort_stats("tottime").print_stats(40)
+    with open(os.path.join(out_dir, "cprofile.txt"), "w") as fp:
+        fp.write(buf.getvalue())
+    buf = io.StringIO()
+    pstats.Stats(cp, stream=buf).sort_stats("tottime").print_stats(25)
+    log("host functions by own time (cProfile):")
+    log(buf.getvalue())
+    os.remove(comp)
+
+
+def profile_main(np, torch, lvl: str, out_dir: str) -> int:
+    from fqzcomp5_tpu_torch import engine_cuda
+    from fqzcomp5_tpu_torch.ops import _build
+
+    engine_cuda._lib()
+    _build.lib()
+    torch.zeros(1, device="cuda")  # the CUDA context, outside the profile
+    work = tempfile.mkdtemp(prefix="fqz5_chip_profile_")
+    try:
+        src = os.path.join(work, "in.fastq")
+        make_corpus(src, CORPUS_MB, np)
+        profile_encode(src, work, lvl, out_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one encode of the corpus instead")
+    ap.add_argument("--level", default="-5",
+                    help="preset of the profiled encode")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
+                    help="directory for the profile tables")
+    opts = ap.parse_args()
+
     t0 = time.monotonic()
     import numpy as np
     import torch
@@ -310,9 +624,12 @@ def main() -> int:
     log(smi)
     phase("device", t0)
 
-    t0 = time.monotonic()
     sys.path.insert(0, ROOT)
-    from fqzcomp5_tpu_torch import cli, cuda_driver, engine_cuda
+    if opts.profile:
+        return profile_main(np, torch, opts.level, opts.out)
+
+    t0 = time.monotonic()
+    from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import _build, rans_cuda, rans_cuda_dec
 
     t1 = time.monotonic()
@@ -328,81 +645,80 @@ def main() -> int:
     phase("build", t0)
 
     t0 = time.monotonic()
-    kres = kernels_vs_plain(np, torch, torch.device("cuda"))
+    dev = torch.device("cuda")
+    kres = kernels_vs_plain(np, torch, dev)
+    kres.update(adaptive_kernels_vs_plain(np, torch, dev))
     phase("kernels", t0)
 
-    t0 = time.monotonic()
+    from fqzcomp5_tpu_torch.ops import model_cuda, rc_cuda
+    counted = {"encode_walk": rans_cuda.encode_walk,
+               "decode_o0": rans_cuda_dec.decode_o0,
+               "decode_o1": rans_cuda_dec.decode_o1,
+               "evolve_128": model_cuda.evolve_128,
+               "evolve_256": model_cuda.evolve_256,
+               "tiny_evolve": model_cuda.tiny_evolve,
+               "rc_encode_walk": rc_cuda.encode_walk}
+    batches = {"decode_o0": engine_cuda.decode_o0_batch,
+               "decode_o1": engine_cuda.decode_o1_batch}
+    launches = dict.fromkeys(counted, 0)
+
     work = tempfile.mkdtemp(prefix="fqz5_chip_smoke_")
     try:
+        t0 = time.monotonic()
         src = os.path.join(work, "in.fastq")
         nbytes = make_corpus(src, CORPUS_MB, np)
         log(f"corpus: {nbytes} bytes, 150 bp reads ("
             f"{time.monotonic() - t0:.3f} s)")
-        counted = (rans_cuda.encode_walk, rans_cuda_dec.decode_o0,
-                   rans_cuda_dec.decode_o1)
-        for fn in counted:
-            fn.launches = 0
-        engine_cuda.decode_o1_batch.calls = 0
-        engine_cuda.decode_o1_batch.s3_bytes = 0
-        rates = {}
-        for lvl in ("-1", "-3"):
-            comp = os.path.join(work, f"c{lvl}.fqz5")
-            out = os.path.join(work, f"o{lvl}.fastq")
-            t1 = time.monotonic()
-            run_cli(["-e", "cuda", lvl, "-V", src, comp])
-            enc_s = time.monotonic() - t1
-            t1 = time.monotonic()
-            run_cli(["-e", "cuda", "-d", "-V", comp, out])
-            dec_s = time.monotonic() - t1
-            same(src, out)
-            os.remove(out)
-            t1 = time.monotonic()
-            # without -e cuda the port's CLI hands the command to the
-            # host engine
-            subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
-                            "-d", "-V", comp, out], cwd=ROOT, check=True)
-            host_s = time.monotonic() - t1
-            same(src, out)
-            os.remove(out)
-            csize = os.path.getsize(comp)
-            rates[lvl] = (nbytes / enc_s / 1e6, nbytes / dec_s / 1e6)
-            log(f"e2e {lvl}: {nbytes} -> {csize} bytes; encode {enc_s:.3f} s"
-                f" = {rates[lvl][0]:.2f} MB/s, decode {dec_s:.3f} s = "
-                f"{rates[lvl][1]:.2f} MB/s; host-engine decode "
-                f"{host_s:.3f} s; both decodes match the source")
-        launches = {fn.__name__: fn.launches for fn in counted}
-        log(f"kernel launches in the e2e run: {launches}")
-        calls = engine_cuda.decode_o1_batch.calls
-        log(f"order-1 decode s3 upload: {engine_cuda.decode_o1_batch.s3_bytes}"
-            f" bytes over {calls} waves")
+        adaptive_vs_host(src, dev)
+        phase("adaptive", t0)
+
+        t0 = time.monotonic()
+        for lvl, runs in PATHS:
+            for fn in counted.values():
+                fn.launches = 0
+            for fn in batches.values():
+                fn.calls = 0
+            engine_cuda.decode_o1_batch.s3_bytes = 0
+            torch.cuda.reset_peak_memory_stats()
+            e2e(src, nbytes, work, lvl)
+            got = {name: fn.launches for name, fn in counted.items()}
+            calls = {name: fn.calls for name, fn in batches.items()}
+            # a decoder runs on this path when the decode handed it a batch
+            need = [*runs, *(k for k, n in calls.items() if n)]
+            log(f"kernel launches in the {lvl} run: {got}; decode batches "
+                f"{calls}; order-1 s3 upload "
+                f"{engine_cuda.decode_o1_batch.s3_bytes} bytes; peak device "
+                f"memory {torch.cuda.max_memory_allocated()} bytes")
+            missing = [k for k in need if got[k] == 0]
+            if missing:
+                raise AssertionError(f"kernels of the {lvl} path never "
+                                     f"launched in its run: {missing}")
+            for k, v in got.items():
+                launches[k] += v
         zero = [k for k, v in launches.items() if v == 0]
         if zero:
-            raise AssertionError(f"kernels never launched on the main path: "
+            raise AssertionError(f"kernels never launched on the main paths: "
                                  f"{zero}")
-
-        pre = os.path.join(work, "prefix.fastq")
-        prefix_copy(src, pre, PREFIX_MB * 1_000_000)
-        gpu_c = os.path.join(work, "prefix.gpu.fqz5")
-        cpu_c = os.path.join(work, "prefix.cpu.fqz5")
-        run_cli(["-e", "cuda", "-1", "-V", pre, gpu_c])
-        arg, _, _ = cli.parse_args(["-1", "-V"])
-        t1 = time.monotonic()
-        with open(cpu_c, "wb") as fp:
-            cuda_driver.encode_file(pre, fp, arg, cuda_driver.Timings(),
-                                    torch.device("cpu"))
-        same(gpu_c, cpu_c)
-        log(f"4 MB prefix: card and CPU (plain versions) archives are equal"
-            f" (CPU encode {time.monotonic() - t1:.3f} s)")
+        for lvl, mb in PREFIXES:
+            card_vs_cpu(src, work, lvl, mb)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     phase("e2e", t0)
 
     src_of = {"encode_walk": "fqzcomp5_tpu_torch/csrc/rans_encode.cu",
               "decode_o0": "fqzcomp5_tpu_torch/csrc/rans_decode.cu",
-              "decode_o1": "fqzcomp5_tpu_torch/csrc/rans_decode.cu"}
+              "decode_o1": "fqzcomp5_tpu_torch/csrc/rans_decode.cu",
+              "evolve_128": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
+              "evolve_256": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
+              "tiny_evolve": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
+              "rc_encode_walk": "fqzcomp5_tpu_torch/csrc/rc_encode.cu"}
     replaces = {"encode_walk": "fqzcomp5_tpu/ops/rans_pallas.py:140",
                 "decode_o0": "fqzcomp5_tpu/ops/rans_pallas_dec.py:1226",
-                "decode_o1": "fqzcomp5_tpu/ops/rans_pallas_dec.py:1396"}
+                "decode_o1": "fqzcomp5_tpu/ops/rans_pallas_dec.py:1396",
+                "evolve_128": "fqzcomp5_tpu/ops/model_pallas.py:131",
+                "evolve_256": "fqzcomp5_tpu/ops/fqz_model_jax.py:38",
+                "tiny_evolve": "fqzcomp5_tpu/ops/fqz_model_jax.py:107",
+                "rc_encode_walk": "fqzcomp5_tpu/ops/rc_pallas.py:164"}
     kernels = []
     for name, rows in kres.items():
         kernels.append({

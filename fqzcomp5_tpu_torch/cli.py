@@ -4,9 +4,8 @@ The flag surface is the JAX package's (``fqzcomp5_tpu.cli``), plus
 ``-e cuda``: encode (single or paired input) and decode (single or
 paired output) through the port's wave engine on ``torch.device("cuda")``.
 Every other command line is handed to ``fqzcomp5_tpu.cli`` as it is.
-``-e cuda`` with no visible CUDA device, or with a method mask that holds
-the adaptive SEQ*/FQZ* codecs (-5..-9, -s/-q), fails with ``ERROR:`` and
-exit code 1 before any output file is opened.
+``-e cuda`` encodes every preset; with no visible CUDA device it fails
+with ``ERROR:`` and exit code 1 before any output file is opened.
 """
 
 from __future__ import annotations
@@ -71,8 +70,6 @@ def _main_cuda(argv: list[str]) -> int:
     from fqzcomp5_tpu_torch import cuda_driver
 
     arg, decomp, files = host_cli.parse_args(argv)
-    if not decomp:
-        cuda_driver.check_methods(arg)
     if not torch.cuda.is_available():
         raise ValueError("-e cuda needs a CUDA device, and none is visible")
     device = torch.device("cuda")

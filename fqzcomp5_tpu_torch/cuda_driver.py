@@ -6,12 +6,17 @@ learner block by block, but batches every segment's rANS work into
 cross-block device walks: order-0, order-1, PACK and STRIPE candidates
 of every seq and qual section of at least MIN_DEVICE bytes walk on the
 given torch device, and only the winners' words are copied back.
-Names, LZP3 and small sections stay on the host, as in the JAX engine.
-Archives are byte-identical to ``fqzcomp5_tpu -e tpu``.
+The adaptive SEQ*/FQZ* candidates of every section of at least
+MIN_DEVICE bytes encode on the device too, batched across the segment's
+blocks (``ops.adaptive_batch``), so every preset (-1..-9, the default,
+-s/-S/-q/-Q) runs here.  Names, LZP3 and small sections stay on the
+host, as in the JAX engine.  Archives are byte-identical to
+``fqzcomp5_tpu -e tpu``.
 
-The adaptive SEQ*/FQZ* codecs (-5..-9) are not ported yet; a method
-mask that holds them is refused (``check_methods``).  A device error
-propagates: nothing here falls back to the host codecs.
+A device error propagates: nothing here falls back to the host codecs.
+Only two routes take them, both codec decisions: sections under
+MIN_DEVICE, and a job the fqz codec declines (a quality alphabet of 96
+symbols or more gives no payload, and the method is skipped).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 
 from fqzcomp5_tpu import container, fastq
-from fqzcomp5_tpu.blocks import compress_with_methods, decode_block
+from fqzcomp5_tpu.blocks import (_SEQ_PARAMS, compress_with_methods,
+                                 decode_block)
 from fqzcomp5_tpu.codecs import host
 from fqzcomp5_tpu.constants import Method, Section, VERS_V11, bit
 from fqzcomp5_tpu.drivers import Timings
@@ -36,6 +42,7 @@ from fqzcomp5_tpu_torch.engine_cuda import (decode_o0_batch,
                                             decode_o1_batch,
                                             encode_o0_batch_lazy,
                                             encode_o1_batch_lazy)
+from fqzcomp5_tpu_torch.ops import adaptive_batch
 from fqzcomp5_tpu_torch.ops import backend as _bk
 
 WAVE = 16           # max blocks per wave
@@ -70,20 +77,8 @@ X_NOSZ = 0x10
 X_CAT = 0x20
 
 _RANS_FAMILY = 0x3FE  # method bits 1..9: RANS0..RANSXN1
-_DEVICE_METHODS = _RANS_FAMILY | bit(Method.LZP3)
-
-
-def check_methods(arg: Options) -> None:
-    """Refuse method masks the port cannot encode yet: the adaptive
-    SEQ*/FQZ* codecs (-5..-9, -s/-q overrides) are ROADMAP slice 2."""
-    _, _, seq_mask, qual_mask = method_avail_for(arg)
-    extra = (seq_mask | qual_mask) & ~_DEVICE_METHODS
-    if extra:
-        names = [Method(m).name for m in range(32) if extra & (1 << m)]
-        raise ValueError(
-            "-e cuda encodes the rANS presets (-1, -3) only; methods "
-            f"{', '.join(names)} are ROADMAP slice 2 (adaptive encode), "
-            "not ported yet")
+_FQZ_METHODS = (Method.FQZ0, Method.FQZ1, Method.FQZ2, Method.FQZ3,
+                Method.FQZ4)
 
 
 def _frame(order: int, data_len: int, payload: bytes) -> bytes:
@@ -334,17 +329,53 @@ class _RansWave:
         return out
 
 
+def _adaptive_jobs_host(jobs):
+    """Host-codec encode of adaptive jobs (sections under MIN_DEVICE).
+    A job the codec declines yields None, the reference's NULL-return
+    method skip."""
+    outs = []
+    for j in jobs:
+        try:
+            if j[0] == "seq":
+                outs.append(host.seq_encode(j[1], j[2], j[3], j[4]))
+            else:
+                outs.append(host.fqz_compress(j[1], j[2], j[3], j[4],
+                                              j[5]))
+        except ValueError:
+            outs.append(None)
+    return outs
+
+
+def _adaptive_jobs(jobs, device: torch.device):
+    """Adaptive jobs of a segment: sections of at least MIN_DEVICE bytes
+    encode in one cross-block batch on the device, smaller ones with the
+    host codecs.  Declined jobs come back as None."""
+    outs = [None] * len(jobs)
+    big = [k for k, j in enumerate(jobs) if len(j[1]) >= MIN_DEVICE]
+    small = [k for k, j in enumerate(jobs) if len(j[1]) < MIN_DEVICE]
+    for k, pay in zip(small, _adaptive_jobs_host([jobs[k] for k in small])):
+        outs[k] = pay
+    if big:
+        pays = adaptive_batch.encode_adaptive_batch([jobs[k] for k in big],
+                                                    device)
+        for k, pay in zip(big, pays):
+            outs[k] = pay
+    return outs
+
+
 class _SegmentTask:
     """One wave segment (blocks sharing a method mask) as a staged
     task, so SEQ and QUAL segments share device batches: start()
-    launches the candidate walks, plan() reads sizes, picks winners and
+    launches the rANS candidate walks and lists the adaptive jobs,
+    plan() encodes the adaptive jobs, reads sizes, picks winners and
     records trials, prefetch() and finish() copy back and frame the
     winners.  The best method per block wins with the host's ascending
     method tie-break (fqzcomp5.c:2106, strictly smaller)."""
 
-    def __init__(self, learner, blocks, sec, datas, seg, mask, trial,
+    def __init__(self, learner, arg, blocks, sec, datas, seg, mask, trial,
                  results, device):
         self.learner = learner
+        self.arg = arg
         self.blocks = blocks
         self.sec = sec
         self.datas = datas
@@ -370,6 +401,32 @@ class _SegmentTask:
             for i in seg:
                 self.lzp[i] = host.rans_compress(host.lzp(datas[i]), 5)
 
+        jobs, jobmeta = [], []
+
+        def add_seq(m, slevel, both):
+            strat = (slevel << 4) | (both << 3) | 1
+            for i in seg:
+                jobs.append(("seq", datas[i], blocks[i].lens, both,
+                             slevel))
+                jobmeta.append((i, int(m), strat))
+
+        for m, (slevel, both) in _SEQ_PARAMS.items():
+            if mask & bit(m):
+                add_seq(m, slevel, both)
+        if mask & bit(Method.SEQ_CUSTOM):
+            add_seq(Method.SEQ_CUSTOM, self.arg.slevel,
+                    self.arg.both_strands)
+        for m in _FQZ_METHODS:
+            if mask & bit(m):
+                strat_n = int(m) - int(Method.FQZ0)
+                for i in seg:
+                    jobs.append(("fqz", datas[i], blocks[i].lens,
+                                 blocks[i].flags, blocks[i].seq_buf,
+                                 strat_n))
+                    jobmeta.append((i, int(m), 1))
+        self.jobs = jobs
+        self.jobmeta = jobmeta
+
     def plan(self) -> None:
         seg, datas = self.seg, self.datas
         # candidates per block: (method, strat, length, payload|None);
@@ -382,6 +439,14 @@ class _SegmentTask:
         for i, pay in self.lzp.items():
             cands[i].append((int(Method.LZP3), int(Method.LZP3),
                              len(pay), pay))
+        declined = {i: [] for i in seg}
+        if self.jobs:
+            pays = _adaptive_jobs(self.jobs, self.device)
+            for (i, m, strat), pay in zip(self.jobmeta, pays):
+                if pay is None:
+                    declined[i].append(m)  # codec skipped this input
+                else:
+                    cands[i].append((m, strat, len(pay), pay))
         self.rans_winners = set()
         self.chosen = {}
         for k, i in enumerate(seg):
@@ -392,6 +457,8 @@ class _SegmentTask:
                 self.rans_winners.add(k)
             if self.trial:
                 sizes = {m: (len(datas[i]), ln) for m, _s, ln, _p in cl}
+                for m in declined[i]:
+                    sizes[m] = (len(datas[i]), (1 << 32) - 1)
                 self.learner.record_trial(self.sec, sizes)
 
     def prefetch(self) -> None:
@@ -408,7 +475,7 @@ class _SegmentTask:
             self.results[i] = (strat, pay)
 
 
-def _section_tasks(learner, blocks, sec, datas, results, device):
+def _section_tasks(learner, arg, blocks, sec, datas, results, device):
     """Generator of _SegmentTasks replaying the trial/lock/review state
     machine block by block (learning.py).  The next task's mask is
     computed only after the previous task's plan() recorded its trials,
@@ -432,8 +499,8 @@ def _section_tasks(learner, blocks, sec, datas, results, device):
                     break
                 seg.append(bi + len(seg))
             trial = False
-        yield _SegmentTask(learner, blocks, sec, datas, seg, mask, trial,
-                           results, device)
+        yield _SegmentTask(learner, arg, blocks, sec, datas, seg, mask,
+                           trial, results, device)
         bi = seg[-1] + 1
 
 
@@ -447,9 +514,9 @@ def encode_wave_blocks(learner: MethodLearner, arg: Options,
     seqs: list = [None] * len(wave)
     quals: list = [None] * len(qual_blocks)
     gens = [
-        _section_tasks(learner, wave, Section.SEQ,
+        _section_tasks(learner, arg, wave, Section.SEQ,
                        [fq.seq_buf for fq in wave], seqs, device),
-        _section_tasks(learner, qual_blocks, Section.QUAL,
+        _section_tasks(learner, arg, qual_blocks, Section.QUAL,
                        [fq.qual_buf for fq in qual_blocks], quals, device),
     ]
     pending = [next(g, None) for g in gens]
@@ -512,7 +579,6 @@ def encode_wave_blocks(learner: MethodLearner, arg: Options,
 
 def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
                   device: torch.device) -> None:
-    check_methods(arg)
     container.write_header(out_fp)
     idx = container.FileIndex()
     learner = MethodLearner()

@@ -327,11 +327,13 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
                     device: torch.device, *, lazy: bool = False):
     """Batched order-0 decode.  With lazy=True, returns a zero-argument
     finisher: the walk is launched now, and the finisher copies the
-    symbols back and decodes the <32-byte remainders on the host."""
+    symbols back and decodes the <32-byte remainders on the host.
+    decode_o0_batch.calls counts the batches that reach the walk."""
     L = _lib()
     B = len(payloads)
     if B == 0:
         return (lambda: []) if lazy else []
+    decode_o0_batch.calls += 1
     s3s = np.empty((B, 1 << TF_SHIFT), np.uint32)
     bodies = []
     for b, p in enumerate(payloads):
@@ -443,5 +445,6 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
     return _finish if lazy else _finish()
 
 
+decode_o0_batch.calls = 0
 decode_o1_batch.calls = 0
 decode_o1_batch.s3_bytes = 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 At first use, nvcc compiles every source under ``csrc/`` for ``sm_90a``
-into one shared library with a plain C interface, under
+(one nvcc process per source, all started together) and links the
+objects into one shared library with a plain C interface, under
 ``build/fqz5_torch_kernels/`` at the repository root, and ``ctypes``
 loads it.  The library's name carries a hash of the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused.  A build
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -22,8 +24,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "fqz5_torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,14 +62,30 @@ def _build(path: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # objects live in a private directory that is removed whatever happens
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as odir:
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(odir, os.path.basename(s) + ".o") for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, text=True,
+                                  stderr=subprocess.STDOUT) for c in cmds]
+        steps = [(c, p.communicate()[0], p.returncode)
+                 for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in steps):
+            link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(link, stdout=subprocess.PIPE, text=True,
+                                 stderr=subprocess.STDOUT)
+            steps.append((link, res.stdout, res.returncode))
     build_seconds = time.monotonic() - t0
+    log = [" ".join(c) + "\n" + out for c, out, _ in steps]
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as fp:
-        fp.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        fp.write("\n".join(log))
+    failed = [entry for entry, (_, _, rc) in zip(log, steps) if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
 
 
@@ -81,6 +100,13 @@ def _register(L: ctypes.CDLL) -> None:
     L.fqz5_rans_decode_o1.restype = i32
     L.fqz5_rans_decode_o1.argtypes = [
         vp, i64, vp, vp, i32, vp, i32, i32, vp, vp, vp, vp]
+    L.fqz5_evolve.restype = i32
+    L.fqz5_evolve.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp, vp]
+    L.fqz5_tiny_evolve.restype = i32
+    L.fqz5_tiny_evolve.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp]
+    L.fqz5_rc_encode_walk.restype = i32
+    L.fqz5_rc_encode_walk.argtypes = [
+        vp, vp, vp, vp, vp, i32, i64, vp, vp, vp, vp]
 
 
 def lib() -> ctypes.CDLL:

@@ -1,0 +1,238 @@
+"""Cross-block batched device encode of the adaptive codecs (SEQ*, FQZ*).
+
+A port of the JAX package's ``ops/adaptive_batch.py``: the three-pass
+context-sorted decomposition (docs/DEVICE_ADAPTIVE_CODECS.md) with many
+blocks' SEQ and FQZ sections sharing one pass-2 batch per model family
+and one pass-3 range-coder walk.
+
+Jobs are namespaced into one event stream (job j, model id m -> key
+j * JOB_OFF + m) and grouped into four model families, each evolved
+across all jobs at once:
+
+  T4    TinyModel<4>        seq codec k-mer models     model_cuda.tiny_evolve
+  T2    TinyModel<2>        seq codec state models     model_cuda.tiny_evolve
+  N128  AdaptiveModel<=128  fqz qual / sel / dup       model_cuda.evolve_128
+  W256  AdaptiveModel<256>  fqz length bytes, seq      model_cuda.evolve_256
+                            run-length and literal
+
+Pass 2's packed triples stay on the device (``DevTriples``), scattered
+into event order; pass 3 keeps each job's encode events (a seq job's
+both-strands update-only events are dropped) and walks every job's
+range coder in chunks of CHUNK_T steps with the state carried, copying
+back only the bytes.  Payloads are byte-identical to the native codecs
+(native/fqzqual.cpp:663-762, native/seq.cpp:39-157).
+
+A job the fqz codec declines (a quality alphabet of 96 symbols or more)
+gives None, decided on the host before any device work.  Nothing here
+falls back to the host codecs: a device error propagates.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fqzcomp5_tpu_torch.ops import fqz_model_torch, model_cuda, rc_cuda
+from fqzcomp5_tpu_torch.ops.fqz_device_encode import (MID_LEN0, MID_SEL,
+                                                      build_stream,
+                                                      prepare_fqz)
+from fqzcomp5_tpu_torch.ops.rc_torch import (cap_for, finish_events,
+                                             init_state)
+from fqzcomp5_tpu_torch.ops.seq_device_encode import (FAM_SEQ, FAM_STATE,
+                                                      build_events)
+
+JOB_OFF = 1 << 32        # > any local model id (4^14 seq ctx, 2^16+6 fqz)
+CHUNK_T = 1 << 22        # pass-3 steps per kernel launch
+BATCH_BUDGET = 128 << 20  # input bytes of the jobs encoded together
+
+# global model families
+F_T4, F_T2, F_N128, F_W256 = 0, 1, 2, 3
+
+
+def _prep_job(job, device: torch.device):
+    """Expand one job into (header, fam, mid, sym, enc_mask, meta) host
+    arrays, or None for a job the fqz codec declines.  'fqz' jobs carry
+    a native wire header."""
+    if job[0] == "fqz":
+        _, qual, lens, flags, seq_buf, strat = job
+        hdr, P, sels = prepare_fqz(qual, lens, flags, seq_buf, strat)
+        if int(P.max_sym) >= 96:
+            # the native codec's decline (Models::init,
+            # native/fqzqual.cpp): >96-symbol alphabets are outside the
+            # wire format's safe envelope
+            return None
+        la = np.ascontiguousarray(lens, np.uint32)
+        mids, syms, _ = build_stream(qual, la, sels, P, device,
+                                     seq=seq_buf)
+        is_w256 = (mids >= MID_LEN0) & (mids < MID_SEL)
+        fam = np.where(is_w256, F_W256, F_N128).astype(np.int8)
+        enc = np.ones(len(mids), bool)
+        meta = (int(P.max_sym) + 1, int(P.max_sel) + 1)
+        return hdr, fam, mids, syms, enc, meta
+    _, seq_buf, lens, both, slevel = job
+    sfam, mid, sym, upd = build_events(seq_buf, lens, both, slevel, device)
+    fam = np.where(sfam == FAM_SEQ, F_T4,
+                   np.where(sfam == FAM_STATE, F_T2,
+                            F_W256)).astype(np.int8)
+    return b"", fam, mid, sym, ~upd, None
+
+
+class DevTriples:
+    """Pass-2 results on the device, in event order: cf[i] = cum << 16 |
+    freq and tot[i] of global event i (int32)."""
+
+    def __init__(self, n_total: int, device: torch.device):
+        self.device = device
+        self.cf = torch.zeros(n_total, dtype=torch.int32, device=device)
+        self.tot = torch.zeros(n_total, dtype=torch.int32, device=device)
+
+    def add(self, cf: torch.Tensor, tot: torch.Tensor, posn: np.ndarray,
+            cell: np.ndarray) -> None:
+        """Scatter a bucket's flat plane cells `cell` to event positions
+        `posn`."""
+        p = torch.from_numpy(posn).to(self.device)
+        c = torch.from_numpy(cell).to(self.device)
+        self.cf[p] = cf.reshape(-1)[c]
+        self.tot[p] = tot.reshape(-1)[c]
+
+
+def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
+    """N128 rows' alphabet sizes: qual models take the job's max_sym+1,
+    the selector model max_sel+1, the dup model 2."""
+    ujob = (uniq // JOB_OFF).astype(np.int64)
+    ulm = uniq % JOB_OFF
+    msym = np.array([m[0] if m else 2 for m in metas], np.int32)
+    msel = np.array([m[1] if m else 2 for m in metas], np.int32)
+    return np.where(ulm < MID_LEN0, msym[ujob],
+                    np.where(ulm == MID_SEL, msel[ujob], 2)).astype(np.int32)
+
+
+def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples) -> None:
+    """Pass 2 for the whole batch: group rows per family across jobs,
+    evolve each family's buckets on the device, scatter the triples to
+    event order in `dev`."""
+    device = dev.device
+    gmid = jobvec * JOB_OFF + mid
+    for F in (F_T4, F_T2, F_N128, F_W256):
+        sel = np.flatnonzero(fam == F)
+        if not len(sel):
+            continue
+        g = fqz_model_torch.group_stream(gmid[sel], sym[sel])
+        kw = dict(collect=dev, posmap=sel)
+        if F in (F_T4, F_T2):
+            nsym = 4 if F == F_T4 else 2
+
+            def run(sp, ct, r, _n=nsym):
+                return model_cuda.tiny_evolve(sp, ct, _n)
+            fqz_model_torch.evolve_grouped(g, run, device, **kw)
+        elif F == F_W256:
+            def run(sp, ct, r):
+                ms = torch.full((len(r),), 256, dtype=torch.int32,
+                                device=device)
+                return model_cuda.evolve_256(sp, ct, ms)
+            fqz_model_torch.evolve_grouped(g, run, device, **kw)
+        else:
+            # rows whose alphabet exceeds 128 slots (a wide selector
+            # model) take the 256-slot walk
+            ms_rows = _row_alphabets(g[0], metas)
+
+            def run_on(walk):
+                def run(sp, ct, r):
+                    ms = torch.from_numpy(ms_rows[r]).to(device)
+                    return walk(sp, ct, ms)
+                return run
+            wide = ms_rows > 128
+            if wide.any():
+                fqz_model_torch.evolve_grouped(
+                    g, run_on(model_cuda.evolve_256), device,
+                    rows=np.flatnonzero(wide), **kw)
+            if not wide.all():
+                fqz_model_torch.evolve_grouped(
+                    g, run_on(model_cuda.evolve_128), device,
+                    rows=np.flatnonzero(~wide), **kw)
+
+
+def rc_walk(cf: torch.Tensor, tot: torch.Tensor, starts: np.ndarray,
+            lens: np.ndarray) -> list[bytes]:
+    """Pass 3: the range-coder payload of every stream.  Stream b codes
+    cf/tot[starts[b] : starts[b] + lens[b]].  All streams walk together
+    in launches of CHUNK_T steps with the coder state carried; each
+    launch's bytes are copied back, and the five finish_encode
+    shift_lows run on the host.  An empty stream is just those five
+    shift_lows from the initial state."""
+    device = cf.device
+    B = len(starts)
+    state = init_state(B, device)
+    parts: list[list[bytes]] = [[] for _ in range(B)]
+    ff_max = 0
+    longest = int(lens.max()) if B else 0
+    for t0 in range(0, longest, CHUNK_T):
+        n = np.clip(lens - t0, 0, CHUNK_T)
+        cap = cap_for(int(n.max()), ff_max)
+        off = torch.from_numpy(starts + np.minimum(t0, lens)).to(device)
+        out, totals, state = rc_cuda.encode_walk(
+            cf, tot, off, torch.from_numpy(n.astype(np.int32)).to(device),
+            state, cap)
+        totals = totals.cpu().numpy()
+        if int(totals.max()) > cap:
+            raise RuntimeError(f"range coder emitted {int(totals.max())} "
+                               f"bytes into room for {cap}")
+        by = out[:, :max(int(totals.max()), 1)].cpu().numpy()
+        for b in range(B):
+            parts[b].append(by[b, :totals[b]].tobytes())
+        ff_max = int(state[3].max())
+    tails = finish_events(state)
+    return [b"".join(parts[b]) + tails[b] for b in range(B)]
+
+
+def encode_adaptive_batch(jobs, device: torch.device) -> list[bytes | None]:
+    """Encode many adaptive-codec jobs in batched three-pass runs on
+    `device`.
+
+    jobs: ('fqz', qual, lens, flags, seq_buf, strat) or ('seq', seq_buf,
+    lens, both, slevel) tuples.  Returns each job's complete section
+    payload (fqz payloads include the native wire header),
+    byte-identical to the host codecs, or None for a job the fqz codec
+    declines.  Jobs whose summed input exceeds BATCH_BUDGET run as
+    several independent batches."""
+    outs: list = []
+    chunk: list = []
+    acc = 0
+    for j in jobs:
+        if chunk and acc + len(j[1]) > BATCH_BUDGET:
+            outs.extend(_encode_chunk(chunk, device))
+            chunk, acc = [], 0
+        chunk.append(j)
+        acc += len(j[1])
+    if chunk:
+        outs.extend(_encode_chunk(chunk, device))
+    return outs
+
+
+def _encode_chunk(jobs, device: torch.device) -> list[bytes | None]:
+    preps = [_prep_job(j, device) for j in jobs]
+    live = [k for k, p in enumerate(preps) if p is not None]
+    outs: list = [None] * len(jobs)
+    if not live:
+        return outs
+    preps = [preps[k] for k in live]
+    n_ev = np.array([len(p[2]) for p in preps], np.int64)
+    total = int(n_ev.sum())
+    jobvec = np.repeat(np.arange(len(preps), dtype=np.int64), n_ev)
+    fam = np.concatenate([p[1] for p in preps])
+    mid = np.concatenate([p[2] for p in preps])
+    sym = np.concatenate([p[3] for p in preps])
+    enc = np.concatenate([p[4] for p in preps])
+
+    dev = DevTriples(total, device)
+    _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps], dev)
+    cf, tot = dev.cf, dev.tot
+    if not enc.all():
+        keep = torch.from_numpy(enc).to(device)
+        cf, tot = cf[keep], tot[keep]
+    n_enc = np.array([int(p[4].sum()) for p in preps], np.int64)
+    starts = np.concatenate(([0], np.cumsum(n_enc)[:-1]))
+    payloads = rc_walk(cf, tot, starts, n_enc)
+    for k, p, pay in zip(live, preps, payloads):
+        outs[k] = p[0] + pay
+    return outs

@@ -1,0 +1,241 @@
+"""Pass 2 of the adaptive-codec encode: per-context model evolution.
+
+A port of the JAX package's ``ops/fqz_model_jax.py``.  Every model
+context is an independent AdaptiveModel (native/rc.h; fqz-qual's qual,
+selector, duplicate and length-byte models, the SEQ codec's run-length
+and literal models) or TinyModel (the SEQ codec's k-mer and state
+models).  Grouping the event stream by context turns the encode's
+serial model updates into one walk per context; the walk emits, for
+every occurrence, the (cum, freq, tot) the range coder needs, packed
+as ``cf = cum << 16 | freq`` and ``tot`` (int32 planes, zero past each
+context's count).
+
+``evolve_ref`` and ``tiny_evolve_ref`` are the plain PyTorch versions
+of the walks: the references the CUDA kernels (``model_cuda``,
+``csrc/fqz_evolve.cu``) are held against, and the route the wrappers
+take for tensors on the CPU.  They loop over occurrences with every
+context of the batch vectorised.  ``group_stream``, ``_concat_arange``
+and the bucketing in ``evolve_grouped`` are the JAX package's numpy
+code; ``evolve_grouped`` hands each bucket's plane to a device walk and
+keeps the results on that device when given a collector.  The JAX
+package's pow2 padding of plane rows is gone: it bounded XLA compiles,
+and torch compiles nothing per shape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel normalisation bound
+TINY_MAX = 255                # TinyModel: halve at pre-bump tot >= 255
+
+
+def evolve_ref(symplane: torch.Tensor, counts: torch.Tensor,
+               max_sym: torch.Tensor, cap: int, step_inc: int = 16):
+    """Evolve C independent AdaptiveModels of ``cap`` slots (128 or 256).
+
+    symplane: (C, T) integer tensor, context c's t-th symbol; counts:
+    (C,) occurrences per context (steps at or past it leave the model
+    as it is); max_sym: (C,) initial alphabet size (slot j holds symbol
+    j, with frequency 1 for j < max_sym and 0 above; tot = max_sym).
+
+    Each step mirrors c_simple_model.h:63-171 (fqz_model_jax.evolve):
+    emit (cum of the frequencies before the symbol's slot, its
+    frequency, tot); bump the frequency and tot by step_inc; when tot
+    passes K_MAX_FREQ halve every frequency (f -= f >> 1, zeros stay
+    zero) and re-sum tot; then swap the slot with the one before it when
+    the bumped frequency is now larger.  A symbol >= cap is in no slot:
+    it emits (0, 0, tot) and bumps only tot, as the JAX scan does.
+
+    Returns (cf, tot): (C, T) int32, ``cum << 16 | freq`` and tot, zero
+    past counts[c]."""
+    C, T = symplane.shape
+    dev = symplane.device
+    i32 = torch.int32
+    slots = torch.arange(cap, device=dev, dtype=i32)
+    freq = (slots[None, :] < max_sym.to(i32)[:, None]).to(i32)
+    sym = slots.repeat(C, 1)          # slot -> symbol
+    inv = slots.repeat(C, 1)          # symbol -> slot
+    tot = max_sym.to(i32).clone()
+    S = symplane.to(torch.int64)
+    act_all = torch.arange(T, device=dev)[None, :] < counts.to(
+        torch.int64)[:, None]
+    out_cf = torch.zeros((C, T), dtype=i32, device=dev)
+    out_tot = torch.zeros((C, T), dtype=i32, device=dev)
+    for t in range(T):
+        s = S[:, t]
+        act = act_all[:, t]
+        found = s < cap
+        pos = inv.gather(1, s.clamp(max=cap - 1)[:, None]).to(torch.int64)
+        f = freq.gather(1, pos)[:, 0]
+        cum = freq.cumsum(1, dtype=i32).gather(1, pos)[:, 0] - f
+        f = torch.where(found, f, 0)
+        cum = torch.where(found, cum, 0)
+        out_cf[:, t] = torch.where(act, (cum << 16) | f, 0)
+        out_tot[:, t] = torch.where(act, tot, 0)
+        # bump
+        freq.scatter_add_(1, pos, ((act & found).to(i32) * step_inc)[:, None])
+        tot = tot + act.to(i32) * step_inc
+        # normalise on overflow (zeros stay zero)
+        over = act & (tot > K_MAX_FREQ)
+        if bool(over.any()):
+            fo = freq[over]
+            fo = fo - (fo >> 1)
+            freq[over] = fo
+            tot[over] = fo.sum(1, dtype=i32)
+        # bubble: swap pos-1 <-> pos when freq[pos] > freq[pos-1]
+        prev = (pos - 1).clamp(min=0)
+        fval = freq.gather(1, pos)[:, 0]
+        fprev = freq.gather(1, prev)[:, 0]
+        do = act & found & (pos[:, 0] > 0) & (fval > fprev)
+        if bool(do.any()):
+            r = do.nonzero()[:, 0]
+            p, pp = pos[r, 0], prev[r, 0]
+            sp, sv = sym[r, pp], s[r].to(i32)
+            freq[r, p] = fprev[r]
+            freq[r, pp] = fval[r]
+            sym[r, p] = sp
+            sym[r, pp] = sv
+            inv[r, sp.to(torch.int64)] = p.to(i32)
+            inv[r, sv.to(torch.int64)] = pp.to(i32)
+    return out_cf, out_tot
+
+
+def tiny_evolve_ref(symplane: torch.Tensor, counts: torch.Tensor,
+                    nsym: int):
+    """Evolve C independent TinyModels of nsym (2 or 4) symbols
+    (native/rc.h TinyModel; fqz_model_jax.tiny_evolve).
+
+    Every frequency starts at 1.  Each step emits (cum of the
+    frequencies below the symbol, its frequency, tot before the bump),
+    bumps the symbol's frequency by 1, and then, when the pre-bump tot
+    was >= 255, halves every frequency (f - (f >> 1)).  A symbol >=
+    nsym emits (tot, 0, tot) and bumps nothing.  Update-only events
+    evolve the same way; their triples are dropped later.
+
+    Returns (cf, tot): (C, T) int32 as evolve_ref's."""
+    C, T = symplane.shape
+    dev = symplane.device
+    i32 = torch.int32
+    freq = torch.ones((C, nsym), dtype=i32, device=dev)
+    S = symplane.to(torch.int64)
+    act_all = torch.arange(T, device=dev)[None, :] < counts.to(
+        torch.int64)[:, None]
+    out_cf = torch.zeros((C, T), dtype=i32, device=dev)
+    out_tot = torch.zeros((C, T), dtype=i32, device=dev)
+    for t in range(T):
+        s = S[:, t]
+        act = act_all[:, t]
+        found = s < nsym
+        sc = s.clamp(max=nsym - 1)[:, None]
+        incl = freq.cumsum(1, dtype=i32)
+        tot = incl[:, -1]
+        f = torch.where(found, freq.gather(1, sc)[:, 0], 0)
+        cum = torch.where(found, incl.gather(1, sc)[:, 0] - f, tot)
+        out_cf[:, t] = torch.where(act, (cum << 16) | f, 0)
+        out_tot[:, t] = torch.where(act, tot, 0)
+        freq.scatter_add_(1, sc, (act & found).to(i32)[:, None])
+        freq = torch.where((act & (tot >= TINY_MAX))[:, None],
+                           freq - (freq >> 1), freq)
+    return out_cf, out_tot
+
+
+def group_stream(ctx: np.ndarray, qm: np.ndarray):
+    """Stable-group a stream's (ctx, sym) sequence by context, CSR form.
+
+    Returns (uniq (C,), counts (C,) i64, starts (C,) i64 into the
+    sorted order, order (n,) i64 stream positions sorted by context,
+    syms_sorted (n,)) -- fqz_model_jax.group_stream."""
+    order = np.argsort(ctx, kind="stable")
+    uniq, starts, counts = np.unique(ctx[order], return_index=True,
+                                     return_counts=True)
+    return (uniq, counts.astype(np.int64), starts.astype(np.int64),
+            order.astype(np.int64), np.ascontiguousarray(qm[order]))
+
+
+def _concat_arange(seg: np.ndarray) -> np.ndarray:
+    """[0..seg[0]), [0..seg[1]), ... concatenated."""
+    total = int(seg.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    return (np.arange(total, dtype=np.int64)
+            - np.repeat(np.cumsum(seg) - seg, seg))
+
+
+def evolve_grouped(g, run, device: torch.device, rows=None, collect=None,
+                   posmap=None):
+    """Pass 2 over a CSR-grouped stream, contexts bucketed by count.
+
+    Each power-of-4 count bucket (16, 64, 256, ...) becomes one (rows,
+    tb) uint8 symbol plane on `device` -- padded cells stay within about
+    4x the events whatever the skew (fqz_model_jax.evolve_grouped).
+
+    g: group_stream result.  run(plane, counts, rows) -> (cf, tot) (C,
+    tb) int32 device tensors; `rows` are the bucket's row indices into
+    g's uniq, for per-row alphabets.  rows: optional subset of row
+    indices to evolve.  collect: optional collector; each bucket's
+    results go to collect.add(cf, tot, posn, cell) -- event positions
+    and flat plane cells -- and stay on the device.  posmap: optional
+    map from this stream's positions to the collector's.  Without a
+    collector, returns (cum, freq, tot) uint32 numpy arrays in stream
+    order."""
+    uniq, counts, starts, order, ssorted = g
+    if rows is None:
+        rows = np.arange(len(uniq), dtype=np.int64)
+    if collect is None:
+        n = len(order)
+        out = (np.zeros(n, np.uint32), np.zeros(n, np.uint32),
+               np.zeros(n, np.uint32))
+    cnt = counts[rows]
+    maxc = int(cnt.max()) if len(cnt) else 0
+    done = np.zeros(len(rows), bool)
+    tb = 16
+    while True:
+        tbe = min(tb, max(maxc, 1))
+        sel = np.flatnonzero(~done & (cnt <= tbe))
+        if len(sel):
+            r = rows[sel]
+            seg = cnt[sel]
+            src = np.repeat(starts[r], seg) + _concat_arange(seg)
+            cell = np.repeat(np.arange(len(sel), dtype=np.int64) * tbe,
+                             seg) + _concat_arange(seg)
+            vals = ssorted[src]
+            if vals.size and int(vals.max()) > 255:
+                raise ValueError("model symbols exceed a byte")
+            sp = np.zeros(len(sel) * tbe, np.uint8)
+            sp[cell] = vals
+            cf, tt = run(
+                torch.from_numpy(sp.reshape(len(sel), tbe)).to(device),
+                torch.from_numpy(seg.astype(np.int32)).to(device), r)
+            posn = order[src]
+            if collect is not None:
+                if posmap is not None:
+                    posn = posmap[posn]
+                collect.add(cf, tt, posn, cell)
+            else:
+                cf = cf.reshape(-1).cpu().numpy().view(np.uint32)[cell]
+                out[0][posn] = cf >> 16
+                out[1][posn] = cf & 0xFFFF
+                out[2][posn] = tt.reshape(-1).cpu().numpy()[cell]
+            done[sel] = True
+        if tbe >= maxc or done.all():
+            break
+        tb *= 4
+    return None if collect is not None else out
+
+
+def triples_for_stream(ctx: np.ndarray, qm: np.ndarray, max_sym: int,
+                       step_inc: int = 16, device: torch.device | str = "cpu"):
+    """Full pass 2 for one stream of a <= 128-symbol model family:
+    group, evolve on `device`, un-sort.  Returns (cum, freq, tot) uint32
+    arrays in stream order (fqz_model_jax.triples_for_stream)."""
+    from fqzcomp5_tpu_torch.ops import model_cuda
+
+    dev = torch.device(device)
+
+    def run(sp, ct, r):
+        ms = torch.full((len(r),), max_sym, dtype=torch.int32, device=dev)
+        return model_cuda.evolve_128(sp, ct, ms, step_inc)
+
+    return evolve_grouped(group_stream(ctx, qm), run, dev)

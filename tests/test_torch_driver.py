@@ -1,6 +1,6 @@
 """cuda_driver's copied helpers against their originals in tpu_driver,
-the method gate, the port's CLI routing, and decode of the golden
-archives through the port's decoder (on the CPU)."""
+the port's CLI routing, and decode of the golden archives through the
+port's decoder (on the CPU)."""
 
 import io
 
@@ -102,20 +102,6 @@ def test_port_decodes_golden_archives(data_dir, golden_dir, name):
         cuda_driver.decode_file(fp, make_fastq_writer(out, arg), arg,
                                 Timings(), CPU)
     assert out.getvalue() == (data_dir / "sample.fastq").read_bytes()
-
-
-@pytest.mark.parametrize("argv,ok", [
-    (["-1"], True), (["-3"], True), (["-1", "-q", "1"], True),
-    (["-3", "-s", "0", "-q", "0"], True),
-    (["-5"], False), (["-7"], False), (["-9"], False), ([], False),
-    (["-1", "-S", "12"], False), (["-3", "-Q", "2"], False)])
-def test_check_methods(argv, ok):
-    arg, _, _ = parse_args(argv)
-    if ok:
-        cuda_driver.check_methods(arg)
-    else:
-        with pytest.raises(ValueError, match="ROADMAP slice 2"):
-            cuda_driver.check_methods(arg)
 
 
 def test_cli_strips_cuda_engine():
