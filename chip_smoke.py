@@ -10,32 +10,44 @@ Phases, each printed with its time; any failure exits non-zero:
      limit as nvidia-smi reports them.
   2. build   -- builds the native host library and the CUDA kernels
      from the checkout's sources (nvcc, sm_90a, one process per source).
-  3. kernels -- runs each of the seven kernels and its plain PyTorch
+  3. kernels -- runs each of the nine kernels and its plain PyTorch
      version on the same inputs and requires bit-identical results (the
      tolerance is zero: this is integer entropy coding); times both on
      the card with CUDA events.  rANS: 64 streams, 4096 steps, order-0
      and order-1 at shift 10 and 12, ragged lengths, a single-symbol
-     stream.  Model evolution: 65,536 contexts x 4,096 occurrences at
-     128 slots, 4 x 4,096 at 256 slots, 2^20 TinyModels x 256.  Range
-     coder: 16 streams x 4,096 steps in two chunks with the state
-     carried.  Then times the evolve-256 and range-coder kernels alone
-     at main-path shapes (one context of about 450k occurrences; 12
-     streams of 2^24 steps).
+     stream; the boundary-table walks at S = 16 and 48 (packed) and 256
+     (counter) and dense order-1 tables of 6 and 47 symbols at
+     shift 10 and 12, with single-symbol streams and contexts; then the
+     five JAX-signature functions of ops/rans_bnd_dec.py on the card
+     against the CPU on one small input.  Model evolution: 65,536
+     contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256 slots,
+     2^20 TinyModels x 256.  Range coder: 16 streams x 4,096 steps in
+     two chunks with the state carried.  Then times the evolve-256 and
+     range-coder kernels alone at main-path shapes (one context of about
+     450k occurrences; 12 streams of 2^24 steps).
   4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
      random-walk qualities) and encodes the seq and qual of its first
      10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
      card; the payloads must equal the native host codecs'.
-  5. e2e     -- drives the port's CLI (fqzcomp5_tpu_torch.cli -e cuda)
-     at -1, -3 and -5, each path with every launch count set to 0 just
-     before it and read just after: encode, decode, cmp; decodes the
-     same archives with the host engine's CLI.  Every kernel a path
-     runs must have launched in it (the encode walk at every preset, the
-     four adaptive kernels at -5, and each rANS decoder the decode path
-     handed a batch).  Reports the -5 peak device memory, and encodes a
-     4 MB prefix at -1 and a 1 MB prefix at -5 both on the card and on
-     the CPU (plain versions), requiring equal archives.
+  5. e2e     -- drives the port's CLI (fqzcomp5_tpu_torch.cli, whose
+     default engine is the card) at -1, -3 and -5, each path with every
+     launch count set to 0 just before it and read just after: encode,
+     decode, cmp; decodes the same archives with the host engine
+     (-e host).  At -1 and -3 the archive is decoded once more with
+     FQZ5_DEC_V3=1 (the boundary-table kernels), again with the counts
+     set to 0 before and read after.  Every kernel a path runs must have
+     launched in it (the encode walk at every preset, the four adaptive
+     kernels at -5, each rANS decoder the decode path handed a batch,
+     the boundary order-0 walk at -1 and the dense order-1 walk at -3).
+     Reports the -5 peak device memory, and encodes a 4 MB prefix at -1
+     and a 1 MB prefix at -5 both on the card and on the CPU (plain
+     versions), requiring equal archives.
 The last two lines are a JSON object of per-kernel results and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  Each kernel's bound_ms is the larger of
+the bytes its measured call moves (inputs read once, outputs written
+once) over 3.35 TB/s and its integer operations over 16.7 T int32
+operations/s (132 SMs x 64 int32 lanes x 1.98 GHz, H100 SXM at 700 W);
+library_ms is null, as no PyTorch call computes an entropy coder's walk.
 
     python3 chip_smoke.py --profile [--level -5] [--out DIR]
 
@@ -69,6 +81,17 @@ PATHS = (("-1", ("encode_walk",)), ("-3", ("encode_walk",)),
                  "rc_encode_walk")))
 # (preset, prefix MB) encoded on the card and on the CPU
 PREFIXES = (("-1", 4), ("-5", 1))
+# presets whose archive is decoded again through the boundary-table
+# walks, and the kernel each such decode must launch
+BOUNDARY = {"-1": "decode_bnd_o0", "-3": "decode_dense_o1"}
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
+INT32_OPS_S = 16.7e12     # 132 SMs x 64 int32 lanes x 1.98 GHz
+# integer operations per walked step, counted from each walk's arithmetic
+# (a lower count: index math and loop control are left out); the boundary
+# searches add two per binary-search level
+OPS_PER_STEP = {"encode_walk": 8, "decode_o0": 7, "decode_o1": 7,
+                "decode_bnd_o0": 7, "decode_dense_o1": 8, "evolve_128": 10,
+                "evolve_256": 10, "tiny_evolve": 6, "rc_encode_walk": 12}
 
 
 def log(msg: str) -> None:
@@ -149,6 +172,18 @@ def _max_err(xs, ys) -> int:
     return err
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _bound(nbytes: int, nops: int):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move nbytes through device memory and do nops int32 operations."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = nops / INT32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def kernels_vs_plain(np, torch, dev):
     from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import rans_cuda, rans_cuda_dec, rans_torch
@@ -173,11 +208,12 @@ def kernels_vs_plain(np, torch, dev):
             wr[b, :len(r)] = r
         return Rf, wr
 
-    def record(name, label, err, k_ms, p_ms, nsym, note=""):
-        res[name].append((label, err, k_ms, p_ms))
+    def record(name, label, err, k_ms, p_ms, nsym, nbytes, note=""):
+        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsym)
+        res[name].append((label, err, k_ms, p_ms, b_ms, by))
         log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
             f"({nsym / k_ms / 1e6:.3f} GB/s of symbols)  plain {p_ms:.3f} ms"
-            + note)
+            f"  bound {b_ms:.4f} ms ({by})" + note)
 
     def check_enc(label, args, kw, nsym):
         k_ms, k_out = _time(lambda: rans_cuda.encode_walk(*args, **kw), 5)
@@ -190,7 +226,9 @@ def kernels_vs_plain(np, torch, dev):
             n = int(nk[b])
             err = max(err, _max_err([k_out[1][b, cap - n:]],
                                     [p_out[1][b, cap - n:]]))
-        record("encode_walk", label, err, k_ms, p_ms, nsym)
+        nbytes = (_nbytes(*args[:2], *kw.values(), k_out[0], k_out[2])
+                  + 2 * int(nk.sum()))
+        record("encode_walk", label, err, k_ms, p_ms, nsym, nbytes)
         return k_out
 
     # order-0: uint8 plane + symbol counts, native prep tables
@@ -217,7 +255,8 @@ def kernels_vs_plain(np, torch, dev):
         if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
             raise AssertionError(f"decode_o0: stream {b} does not round-trip")
     record("decode_o0", "shift12", err, k_ms, p_ms,
-           int((lens // 32).sum()) * 32, "  (round-trips the sources)")
+           int((lens // 32).sum()) * 32, _nbytes(*args[:4], *k_out),
+           "  (round-trips the sources)")
 
     # order-1: flat ctx*256+sym plane, per-chunk layout, lane 31 seeded
     iszs = lens // 32
@@ -258,7 +297,8 @@ def kernels_vs_plain(np, torch, dev):
                     f"decode_o1 shift{shift}: stream {b} does not "
                     "round-trip")
         record("decode_o1", f"shift{shift}", err, k_ms, p_ms,
-               int(iszs.sum()) * 32, "  (round-trips the sources)")
+               int(iszs.sum()) * 32, _nbytes(*args[:4], *k_out),
+               "  (round-trips the sources)")
     for name, rows in res.items():
         bad = [r for r in rows if r[1] != 0]
         if bad:
@@ -291,10 +331,12 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         sp[1] = ms[1] - 1
         return put(sp), put(counts), put(ms), int(counts.sum())
 
-    def record(name, label, err, k_ms, p_ms, steps):
-        res[name].append((label, err, k_ms, p_ms))
+    def record(name, label, err, k_ms, p_ms, steps, nbytes):
+        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * steps)
+        res[name].append((label, err, k_ms, p_ms, b_ms, by))
         log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
-            f"({steps / k_ms / 1e3:.3f} M steps/s)  plain {p_ms:.3f} ms")
+            f"({steps / k_ms / 1e3:.3f} M steps/s)  plain {p_ms:.3f} ms"
+            f"  bound {b_ms:.4f} ms ({by})")
 
     for name, fn, cap, (C, T, M) in (
             ("evolve_128", model_cuda.evolve_128, 128, (65536, 4096, 96)),
@@ -303,8 +345,9 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         k_ms, k_out = _time(lambda: fn(sp, ct, ms), 3)
         p_ms, p_out = _time(
             lambda: fqz_model_torch.evolve_ref(sp, ct, ms, cap), 1)
+        # each used symbol read once, (cf, tot) written per step
         record(name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms, p_ms,
-               steps)
+               steps, steps * 9 + _nbytes(ct, ms))
     for nsym in (4, 2):
         C, T = 1 << 20, 256
         counts = put(rng.integers(0, T + 1, C).astype(np.int32))
@@ -313,8 +356,10 @@ def adaptive_kernels_vs_plain(np, torch, dev):
             lambda: model_cuda.tiny_evolve(sp, counts, nsym), 3)
         p_ms, p_out = _time(
             lambda: fqz_model_torch.tiny_evolve_ref(sp, counts, nsym), 1)
+        steps = int(counts.sum())
         record("tiny_evolve", f"nsym={nsym} C={C} T={T}",
-               _max_err(k_out, p_out), k_ms, p_ms, int(counts.sum()))
+               _max_err(k_out, p_out), k_ms, p_ms, steps,
+               steps * 9 + _nbytes(counts))
 
     # range coder: 16 ragged streams of up to 4096 steps, two chunks
     B, T, chunk = 16, 4096, 2048
@@ -335,6 +380,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
     st_k = st_p = rc_torch.init_state(B, dev)
     err = 0
     k_tot = p_tot = 0.0
+    out_bytes = 0
     for t0 in (0, chunk):
         n = put(np.clip(lens - t0, 0, chunk).astype(np.int32))
         off = put(np.arange(B, dtype=np.int64) * T + np.minimum(t0, lens))
@@ -346,14 +392,16 @@ def adaptive_kernels_vs_plain(np, torch, dev):
             cf, tt, off, n, st_p, cap), 1)
         err = max(err, _max_err(k_out[1:], p_out[1:]))
         totals = k_out[1].cpu().numpy()
+        out_bytes += int(totals.sum())
         for b in range(B):
             nb = int(totals[b])
             err = max(err, _max_err([k_out[0][b, :nb]], [p_out[0][b, :nb]]))
         st_k, st_p = k_out[2], p_out[2]
         k_tot += k_ms
         p_tot += p_ms
+    # (cum<<16|freq, tot) read per step; two chunks' states in and out
     record("rc_encode_walk", f"B={B} T={T} in 2 chunks", err, k_tot, p_tot,
-           int(lens.sum()))
+           int(lens.sum()), 8 * int(lens.sum()) + out_bytes + 4 * 5 * B * 4)
 
     # the kernels alone at main-path shapes
     sp = put(np.minimum(rng.zipf(1.2, (4, 450_000)) - 1, 255)
@@ -383,6 +431,219 @@ def adaptive_kernels_vs_plain(np, torch, dev):
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{bad}")
     return res
+
+
+def _o0_words(datas, dev, np, torch):
+    """Order-0 walks of byte streams through the encode kernel: (freqs
+    (B, 256), words (B, W) int16 tensor, R0 (B, 32) int32 tensor, lens)."""
+    from fqzcomp5_tpu_torch import engine_cuda
+    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
+
+    B, T = len(datas), T_STEPS
+    lens = np.array([len(d) for d in datas], np.int32)
+    plane = np.zeros((B, T * 32), np.uint8)
+    freqs = np.empty((B, 256), np.uint32)
+    for b, d in enumerate(datas):
+        plane[b, :len(d)] = d
+        freqs[b] = engine_cuda.o0_prep(d.tobytes())[1]
+    Rf, w, nw = rans_cuda.encode_walk(
+        torch.from_numpy(plane.reshape(B, T, 32)).to(dev),
+        rans_torch.tables_from_numpy(freqs, "freqs", shift=12, device=dev),
+        12, nsym=torch.from_numpy(lens).to(dev))
+    return freqs, *_compact_words(Rf, w, nw, dev, np, torch), lens
+
+
+def _o1_words(datas, shift, dev, np, torch):
+    """Order-1 chunked walks (lane z owns bytes [z*isz, (z+1)*isz)) of
+    byte streams through the encode kernel at the given shift: (freqs
+    (B, 256, 256), words, R0, iszs)."""
+    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
+
+    B, T = len(datas), T_STEPS
+    iszs = np.array([len(d) // 32 for d in datas], np.int32)
+    flat = np.full((B, T, 32), 256 * 256, np.int32)
+    counts = np.zeros((B, 256 * 256), np.int64)
+    for b, d in enumerate(datas):
+        isz = int(iszs[b])
+        ch = d[:32 * isz].reshape(32, isz).T.astype(np.int32)
+        flat[b, 0] = ch[0]
+        flat[b, 1:isz] = ch[:-1] * 256 + ch[1:]
+        counts[b] = np.bincount(flat[b, :isz].reshape(-1), minlength=65536)
+    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
+    Rf, w, nw = rans_cuda.encode_walk(
+        torch.from_numpy(flat).to(dev),
+        rans_torch.tables_from_numpy(freqs, "freqs", shift=shift,
+                                     device=dev), shift)
+    return freqs, *_compact_words(Rf, w, nw, dev, np, torch), iszs
+
+
+def _compact_words(Rf, w, nw, dev, np, torch):
+    """An encode walk's (Rf, words, nwords) -> (words (B, W) int16, R0
+    (B, 32) int32) on dev, the rows a decode walk reads."""
+    w = w.cpu().numpy().view(np.uint16)
+    nw = nw.cpu().numpy()
+    rows = np.zeros((len(nw), max(1, int(nw.max()))), np.uint16)
+    for b, n in enumerate(nw):
+        rows[b, :n] = w[b, w.shape[1] - n:]
+    return torch.from_numpy(rows.view(np.int16)).to(dev), Rf
+
+
+def bnd_kernels_vs_plain(np, torch, dev):
+    """The boundary-table walks against their plain versions (zero
+    tolerance) at B = 64 streams, T = 4096 steps, ragged, with a
+    single-symbol stream in every set; tables built from s3 LUTs as the
+    engine builds them."""
+    from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_cuda_bnd
+    from fqzcomp5_tpu_torch.ops import rans_torch
+
+    rng = np.random.default_rng(SEED + 2)
+    B, T = B_STREAMS, T_STEPS
+    cap = T * 32
+    res = {"decode_bnd_o0": [], "decode_dense_o1": []}
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def streams(make):
+        out = []
+        for b in range(B):
+            n = cap if b == 0 else int(rng.integers(cap // 2, cap + 1))
+            d = make(n).astype(np.uint8)
+            out.append(np.full(n, d[0], np.uint8) if b == 5 else d)
+        return out
+
+    def qual(n, lo, width):
+        return np.cumsum(rng.integers(-2, 3, n)) % width + lo
+
+    def record(name, label, err, k_ms, p_ms, nsym, nbytes, levels):
+        b_ms, by = _bound(nbytes, (OPS_PER_STEP[name] + 2 * levels) * nsym)
+        res[name].append((label, err, k_ms, p_ms, b_ms, by))
+        log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
+            f"({nsym / k_ms / 1e6:.3f} GB/s of symbols)  plain {p_ms:.3f} ms"
+            f"  bound {b_ms:.4f} ms ({by})  (round-trips the sources)")
+
+    dna = np.frombuffer(b"ACGTN", np.uint8)
+    for want_S, make in (
+            (16, lambda n: rng.choice(np.arange(2, 12), n)),
+            (48, lambda n: qual(n, 2, 40)),
+            (256, lambda n: rng.choice(dna, n, p=[.3, .2, .2, .29, .01]))):
+        datas = streams(make)
+        freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+        tab, f0, S, packed = rans_bnd_torch.o0_tables(
+            rans_torch.build_s3(freqs, 12))
+        if S != want_S:
+            raise AssertionError(f"decode_bnd_o0: bucket {S}, not {want_S}")
+        args = (words, R0, put(tab), put(f0), put(lens // 32), T, S)
+        k_ms, k_out = _time(lambda: rans_cuda_bnd.decode_bnd_o0(
+            *args, packed=packed), 5)
+        p_ms, p_out = _time(lambda: rans_bnd_torch.decode_bnd_o0_ref(
+            *args, packed=packed), 1)
+        syms = k_out[0].cpu().numpy()
+        for b, d in enumerate(datas):
+            t = len(d) // 32
+            if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
+                raise AssertionError(f"decode_bnd_o0 S={S}: stream {b} does "
+                                     "not round-trip")
+        record("decode_bnd_o0", f"S={S} {'packed' if packed else 'counter'}",
+               _max_err(k_out, p_out), k_ms, p_ms,
+               int((lens // 32).sum()) * 32, _nbytes(*args[:5], *k_out),
+               S.bit_length())
+    # A counts byte 0 too: contexts that never occur have all-zero s3
+    # rows, which recover as symbol 0 at f = tot (as in the JAX route)
+    for want_A, make in ((6, lambda n: rng.choice(dna, n)),
+                         (47, lambda n: qual(n, 36, 46))):
+        datas = streams(make)
+        for shift in (10, 12):
+            freqs, words, R0, iszs = _o1_words(datas, shift, dev, np, torch)
+            tab, alphabet, A, A1, last0 = \
+                rans_bnd_torch.build_o1_dense_tables(
+                    rans_bnd_torch.freqs_from_s3(
+                        rans_torch.build_s3(freqs, shift).reshape(B, -1),
+                        shift), shift)
+            if A != want_A:
+                raise AssertionError(f"decode_dense_o1: A {A}, not {want_A}")
+            args = (words, R0, put(tab), put(iszs), T, shift, A, A1, last0)
+            k_ms, k_out = _time(
+                lambda: rans_cuda_bnd.decode_dense_o1(*args), 5)
+            p_ms, p_out = _time(
+                lambda: rans_bnd_torch.decode_dense_o1_ref(*args), 1)
+            syms = k_out[0].cpu().numpy()
+            for b, d in enumerate(datas):
+                isz = int(iszs[b])
+                if not np.array_equal(alphabet[syms[b, :isz]].T.reshape(-1),
+                                      d[:32 * isz]):
+                    raise AssertionError(
+                        f"decode_dense_o1 A={A} shift{shift}: stream {b} "
+                        "does not round-trip")
+            record("decode_dense_o1", f"A={A} shift{shift}",
+                   _max_err(k_out, p_out), k_ms, p_ms, int(iszs.sum()) * 32,
+                   _nbytes(*args[:4], *k_out), A.bit_length())
+    for name, rows in res.items():
+        bad = [r for r in rows if r[1] != 0]
+        if bad:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{bad}")
+    return res
+
+
+def jax_signatures_vs_cpu(np, torch, dev) -> None:
+    """The five JAX-signature functions of ops/rans_bnd_dec.py on one
+    small input, on the card (the kernels) against the CPU (the plain
+    versions), zero tolerance."""
+    from fqzcomp5_tpu_torch.ops import rans_bnd_dec, rans_bnd_torch, rans_torch
+
+    rng = np.random.default_rng(SEED + 3)
+    B, S = 8, 48
+    datas = [(np.cumsum(rng.integers(-2, 3, int(rng.integers(3000, 9000))))
+              % 40 + 2).astype(np.uint8) for _ in range(B)]
+    freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+    treal = (lens // 32).astype(np.int32)
+    W = words.shape[1]
+    words128 = np.zeros((B, (W + 127) // 128 * 128), np.int32)
+    words128[:, :W] = words.cpu().numpy().view(np.uint16)
+    words128 = words128.reshape(B, -1, 128)
+    R0 = R0.cpu().numpy()
+    R0_128 = np.zeros((B, 128), np.int32)
+    R0_128[:, :32] = R0
+    ex = rans_bnd_torch.expand4
+    f0exp = ex(freqs[:, :1].astype(np.int32))[:, 0, :]
+    texp = ex(treal.reshape(-1, 1))[:, 0, :]
+    counter = rans_bnd_torch.build_dec_tables(freqs, 12, S)
+    packed = rans_bnd_torch.build_dec_tables_p(freqs, 12, S)
+
+    def four(tab):
+        return (words128, np.ascontiguousarray(ex(tab).transpose(1, 0, 2)),
+                f0exp, R0.reshape(-1, 128), texp)
+
+    T = int(treal.max())
+    cases = [("decode_walk", (words128, counter, freqs[:, :1].astype(
+                np.int32), R0_128, treal), {"S": S}),
+             ("decode_walk4", four(counter), {"S": S}),
+             ("decode_walk4v3", four(packed), {"S": S}),
+             ("decode_walk4v4", four(packed), {"S": S})]
+    o1 = [d[:len(d) // 32 * 32] for d in datas[:4]]
+    f1, w1, R1, iszs = _o1_words(o1, 12, dev, np, torch)
+    tab1, _, A, A1, last0 = rans_bnd_torch.build_o1_dense_tables(
+        rans_bnd_torch.freqs_from_s3(
+            rans_torch.build_s3(f1, 12).reshape(4, -1), 12), 12)
+    W1 = w1.shape[1]
+    w1_128 = np.zeros((4, (W1 + 127) // 128 * 128), np.int32)
+    w1_128[:, :W1] = w1.cpu().numpy().view(np.uint16)
+    cases.append(("decode_walk4v3_o1", (
+        w1_128.reshape(4, -1, 128),
+        np.ascontiguousarray(ex(tab1).transpose(1, 0, 2)),
+        R1.cpu().numpy().reshape(1, 128),
+        ex(iszs.reshape(-1, 1))[:, 0, :].astype(np.int32)),
+        {"shift": 12, "A": A, "A1": A1, "last0": last0}))
+    for name, args, kw in cases:
+        fn = getattr(rans_bnd_dec, name)
+        Tn = int(iszs.max()) if name.endswith("o1") else T
+        got = fn(*(torch.from_numpy(a).to(dev) for a in args), Tn, **kw)
+        want = fn(*map(torch.from_numpy, args), Tn, **kw)
+        err = _max_err([g.cpu() for g in got], want)
+        log(f"  {name} (JAX layout): card vs CPU max_abs_err {err}")
+        if err:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------
@@ -436,40 +697,59 @@ def same(a: str, b: str) -> None:
         raise AssertionError(f"{a} and {b} differ")
 
 
-def e2e(src: str, nbytes: int, work: str, lvl: str) -> None:
-    """Encode src at preset lvl through the port's CLI, decode it with
-    the port and with the host engine, and require both to equal src."""
+def e2e(src: str, nbytes: int, work: str, lvl: str) -> tuple[str, float]:
+    """Encode src at preset lvl through the port's CLI (on the card, its
+    default), decode it with the port and with the host engine (-e
+    host), and require both to equal src.  Returns the archive's path
+    and the port's decode seconds."""
     comp = os.path.join(work, f"c{lvl}.fqz5")
     out = os.path.join(work, f"o{lvl}.fastq")
     t1 = time.monotonic()
-    run_cli(["-e", "cuda", lvl, "-V", src, comp])
+    run_cli([lvl, "-V", src, comp])
     enc_s = time.monotonic() - t1
     t1 = time.monotonic()
-    run_cli(["-e", "cuda", "-d", "-V", comp, out])
+    run_cli(["-d", "-V", comp, out])
     dec_s = time.monotonic() - t1
     same(src, out)
     os.remove(out)
     t1 = time.monotonic()
-    # without -e cuda the port's CLI hands the command to the host engine
     subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
-                    "-d", "-V", comp, out], cwd=ROOT, check=True)
+                    "-e", "host", "-d", "-V", comp, out], cwd=ROOT,
+                   check=True)
     host_s = time.monotonic() - t1
     same(src, out)
     os.remove(out)
     csize = os.path.getsize(comp)
-    os.remove(comp)
     log(f"e2e {lvl}: {nbytes} -> {csize} bytes; encode {enc_s:.3f} s = "
         f"{nbytes / enc_s / 1e6:.2f} MB/s, decode {dec_s:.3f} s = "
         f"{nbytes / dec_s / 1e6:.2f} MB/s; host-engine decode {host_s:.3f} s;"
         f" both decodes match the source")
+    return comp, dec_s
+
+
+def decode_boundary(src: str, comp: str, work: str) -> float:
+    """Decode comp through the port's CLI with FQZ5_DEC_V3=1 (the
+    boundary-table walks) and require it to equal src; returns the
+    decode seconds."""
+    out = os.path.join(work, "bnd.fastq")
+    os.environ["FQZ5_DEC_V3"] = "1"
+    try:
+        t1 = time.monotonic()
+        run_cli(["-d", "-V", comp, out])
+        dec_s = time.monotonic() - t1
+    finally:
+        del os.environ["FQZ5_DEC_V3"]
+    same(src, out)
+    os.remove(out)
+    return dec_s
 
 
 def adaptive_vs_host(src: str, dev) -> None:
     """The first 10 MB block's seq and qual under SEQ10, SEQ12B, FQZ1 and
     FQZ3 as one adaptive batch on the card, against the native host
     codecs."""
-    from fqzcomp5_tpu import fastq
-    from fqzcomp5_tpu.codecs import host
+    from fqzcomp5_tpu_torch import fastq
+    from fqzcomp5_tpu_torch.codecs import host
     from fqzcomp5_tpu_torch.ops import adaptive_batch
 
     fq = fastq.Parser(fastq.open_input(src)).next_batch(10_000_000)
@@ -503,7 +783,7 @@ def card_vs_cpu(src: str, work: str, lvl: str, mb: int) -> None:
     prefix_copy(src, pre, mb * 1_000_000)
     gpu_c = os.path.join(work, "prefix.gpu.fqz5")
     cpu_c = os.path.join(work, "prefix.cpu.fqz5")
-    run_cli(["-e", "cuda", lvl, "-V", pre, gpu_c])
+    run_cli([lvl, "-V", pre, gpu_c])
     arg, _, _ = cli.parse_args([lvl, "-V"])
     t1 = time.monotonic()
     with open(cpu_c, "wb") as fp:
@@ -647,13 +927,17 @@ def main() -> int:
     t0 = time.monotonic()
     dev = torch.device("cuda")
     kres = kernels_vs_plain(np, torch, dev)
+    kres.update(bnd_kernels_vs_plain(np, torch, dev))
+    jax_signatures_vs_cpu(np, torch, dev)
     kres.update(adaptive_kernels_vs_plain(np, torch, dev))
     phase("kernels", t0)
 
-    from fqzcomp5_tpu_torch.ops import model_cuda, rc_cuda
+    from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_bnd, rc_cuda
     counted = {"encode_walk": rans_cuda.encode_walk,
                "decode_o0": rans_cuda_dec.decode_o0,
                "decode_o1": rans_cuda_dec.decode_o1,
+               "decode_bnd_o0": rans_cuda_bnd.decode_bnd_o0,
+               "decode_dense_o1": rans_cuda_bnd.decode_dense_o1,
                "evolve_128": model_cuda.evolve_128,
                "evolve_256": model_cuda.evolve_256,
                "tiny_evolve": model_cuda.tiny_evolve,
@@ -661,6 +945,31 @@ def main() -> int:
     batches = {"decode_o0": engine_cuda.decode_o0_batch,
                "decode_o1": engine_cuda.decode_o1_batch}
     launches = dict.fromkeys(counted, 0)
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        for fn in batches.values():
+            fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
+
+    def read(path, need, decoders):
+        """Counts of the path just run.  Every kernel in need must have
+        launched in it, and decoders[batch] wherever the decode handed
+        that batch function a batch."""
+        got = {name: fn.launches for name, fn in counted.items()}
+        calls = {name: fn.calls for name, fn in batches.items()}
+        need = [*need, *(k for b, k in decoders.items() if calls[b])]
+        tables = {f"{name} {k}": getattr(fn, k) for name, fn in
+                  batches.items() for k in ("s3_bytes", "bnd_bytes")}
+        log(f"kernel launches in the {path} run: {got}; decode batches "
+            f"{calls}; table uploads {tables} bytes")
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels of the {path} path never "
+                                 f"launched in its run: {missing}")
+        for k, v in got.items():
+            launches[k] += v
+        return sum(tables.values())
 
     work = tempfile.mkdtemp(prefix="fqz5_chip_smoke_")
     try:
@@ -674,27 +983,24 @@ def main() -> int:
 
         t0 = time.monotonic()
         for lvl, runs in PATHS:
-            for fn in counted.values():
-                fn.launches = 0
-            for fn in batches.values():
-                fn.calls = 0
-            engine_cuda.decode_o1_batch.s3_bytes = 0
+            reset()
             torch.cuda.reset_peak_memory_stats()
-            e2e(src, nbytes, work, lvl)
-            got = {name: fn.launches for name, fn in counted.items()}
-            calls = {name: fn.calls for name, fn in batches.items()}
-            # a decoder runs on this path when the decode handed it a batch
-            need = [*runs, *(k for k, n in calls.items() if n)]
-            log(f"kernel launches in the {lvl} run: {got}; decode batches "
-                f"{calls}; order-1 s3 upload "
-                f"{engine_cuda.decode_o1_batch.s3_bytes} bytes; peak device "
-                f"memory {torch.cuda.max_memory_allocated()} bytes")
-            missing = [k for k in need if got[k] == 0]
-            if missing:
-                raise AssertionError(f"kernels of the {lvl} path never "
-                                     f"launched in its run: {missing}")
-            for k, v in got.items():
-                launches[k] += v
+            comp, dec_s = e2e(src, nbytes, work, lvl)
+            log(f"peak device memory in the {lvl} run: "
+                f"{torch.cuda.max_memory_allocated()} bytes")
+            lut_bytes = read(lvl, runs, {"decode_o0": "decode_o0",
+                                         "decode_o1": "decode_o1"})
+            if lvl in BOUNDARY:
+                reset()
+                bnd_s = decode_boundary(src, comp, work)
+                bnd_bytes = read(f"{lvl} FQZ5_DEC_V3 decode", [BOUNDARY[lvl]],
+                                 {"decode_o0": "decode_bnd_o0"})
+                log(f"decode {lvl}: s3-LUT walks {dec_s:.3f} s "
+                    f"({nbytes / dec_s / 1e6:.2f} MB/s), tables {lut_bytes} "
+                    f"bytes; boundary-table walks {bnd_s:.3f} s "
+                    f"({nbytes / bnd_s / 1e6:.2f} MB/s), tables {bnd_bytes} "
+                    "bytes; both match the source")
+            os.remove(comp)
         zero = [k for k, v in launches.items() if v == 0]
         if zero:
             raise AssertionError(f"kernels never launched on the main paths: "
@@ -705,28 +1011,38 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     phase("e2e", t0)
 
-    src_of = {"encode_walk": "fqzcomp5_tpu_torch/csrc/rans_encode.cu",
-              "decode_o0": "fqzcomp5_tpu_torch/csrc/rans_decode.cu",
-              "decode_o1": "fqzcomp5_tpu_torch/csrc/rans_decode.cu",
-              "evolve_128": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
-              "evolve_256": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
-              "tiny_evolve": "fqzcomp5_tpu_torch/csrc/fqz_evolve.cu",
-              "rc_encode_walk": "fqzcomp5_tpu_torch/csrc/rc_encode.cu"}
+    dec = "fqzcomp5_tpu/ops/rans_pallas_dec.py"
+    src_of = {"encode_walk": "csrc/rans_encode.cu",
+              "decode_o0": "csrc/rans_decode.cu",
+              "decode_o1": "csrc/rans_decode.cu",
+              "decode_bnd_o0": "csrc/rans_decode_bnd.cu",
+              "decode_dense_o1": "csrc/rans_decode_bnd.cu",
+              "evolve_128": "csrc/fqz_evolve.cu",
+              "evolve_256": "csrc/fqz_evolve.cu",
+              "tiny_evolve": "csrc/fqz_evolve.cu",
+              "rc_encode_walk": "csrc/rc_encode.cu"}
     replaces = {"encode_walk": "fqzcomp5_tpu/ops/rans_pallas.py:140",
-                "decode_o0": "fqzcomp5_tpu/ops/rans_pallas_dec.py:1226",
-                "decode_o1": "fqzcomp5_tpu/ops/rans_pallas_dec.py:1396",
+                "decode_o0": f"{dec}:1226",
+                "decode_o1": f"{dec}:1396",
+                "decode_bnd_o0": f"{dec}:665; :234; :406; :1590",
+                "decode_dense_o1": f"{dec}:908",
                 "evolve_128": "fqzcomp5_tpu/ops/model_pallas.py:131",
                 "evolve_256": "fqzcomp5_tpu/ops/fqz_model_jax.py:38",
                 "tiny_evolve": "fqzcomp5_tpu/ops/fqz_model_jax.py:107",
                 "rc_encode_walk": "fqzcomp5_tpu/ops/rc_pallas.py:164"}
     kernels = []
     for name, rows in kres.items():
+        n = len(rows)
         kernels.append({
-            "name": name, "route": "cuda", "source": src_of[name],
+            "name": name, "route": "cuda",
+            "source": "fqzcomp5_tpu_torch/" + src_of[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r[1] for r in rows),
-            "ms": sum(r[2] for r in rows) / len(rows),
-            "plain_ms": sum(r[3] for r in rows) / len(rows)})
+            "ms": sum(r[2] for r in rows) / n,
+            "plain_ms": sum(r[3] for r in rows) / n,
+            "bound_ms": sum(r[4] for r in rows) / n,
+            "bound_by": max(rows, key=lambda r: r[4])[5],
+            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,7 +11,8 @@
 // remapped order-1 alphabets to at most 64 dense symbols, and fed words
 // through rolled DMA windows.  Here one warp owns one stream: the symbol
 // is one s3 gather, and the renormalising lanes take consecutive words at
-// ptr + popc(ballot & lanes_below).  There is no alphabet limit.
+// ptr + popc(ballot & lanes_below) (fqz5::feed_words, rans_dec_common.cuh,
+// shared with rans_decode_bnd.cu).  There is no alphabet limit.
 //
 // What bounds them on the H100: per step, the dependent chain R -> s3
 // gather -> multiply -> word gather -> R.  The order-0 s3 table (16 KB)
@@ -27,18 +28,17 @@
 // as 0 (as rans_jax.decode_scan/decode_scan_o1 take it) it would make
 // every such step renormalise: harmless for a single-symbol order-0
 // stream, whose symbols stay right, but wrong for every later symbol of
-// an order-1 lane.  Word reads are still clipped to the last word of the
-// stream's row, as decode_scan clips them, so a corrupt stream cannot
-// read out of bounds.  Steps at or past a stream's t_real neither move
+// an order-1 lane.  Steps at or past a stream's t_real neither move
 // the state nor consume words; they write the symbol of the frozen state
 // (order-0) or the last symbol (order-1), as the scans do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rans_dec_common.cuh"
+
 namespace {
 
-constexpr uint32_t kRansL = 1u << 15;
 constexpr int kO0Shift = 12;
 constexpr int kO0Tot = 1 << kO0Shift;
 constexpr int kO1WarpsPerBlock = 4;
@@ -68,14 +68,7 @@ __global__ void decode_o0_kernel(const uint16_t* __restrict__ words,
         uint32_t F = S >> (kO0Shift + 8);
         if (F == 0) F = kO0Tot;
         uint32_t Rn = F * (R >> kO0Shift) + ((S >> 8) & (kO0Tot - 1));
-        const bool need = Rn < kRansL;
-        const uint32_t bal = __ballot_sync(0xffffffffu, need);
-        if (need) {
-            long long i = ptr + __popc(bal & lt_mask);
-            if (i > W - 1) i = W - 1;
-            Rn = (Rn << 16) | w[i];
-        }
-        ptr += __popc(bal);
+        Rn = fqz5::feed_words(Rn, w, W, ptr, lt_mask);
         out[(long long)t * 32 + lane] = (uint8_t)(S & 0xFF);
         R = Rn;
     }
@@ -111,14 +104,7 @@ __global__ void decode_o1_kernel(const uint16_t* __restrict__ words,
         uint32_t F = S >> (shift + 8);
         if (F == 0) F = tot;
         uint32_t Rn = F * (R >> shift) + ((S >> 8) & mask);
-        const bool need = Rn < kRansL;
-        const uint32_t bal = __ballot_sync(0xffffffffu, need);
-        if (need) {
-            long long i = ptr + __popc(bal & lt_mask);
-            if (i > W - 1) i = W - 1;
-            Rn = (Rn << 16) | w[i];
-        }
-        ptr += __popc(bal);
+        Rn = fqz5::feed_words(Rn, w, W, ptr, lt_mask);
         last = S & 0xFF;
         out[(long long)t * 32 + lane] = (uint8_t)last;
         R = Rn;

@@ -29,15 +29,15 @@ from typing import BinaryIO
 import numpy as np
 import torch
 
-from fqzcomp5_tpu import container, fastq
-from fqzcomp5_tpu.blocks import (_SEQ_PARAMS, compress_with_methods,
-                                 decode_block)
-from fqzcomp5_tpu.codecs import host
-from fqzcomp5_tpu.constants import Method, Section, VERS_V11, bit
-from fqzcomp5_tpu.drivers import Timings
-from fqzcomp5_tpu.learning import MethodLearner
-from fqzcomp5_tpu.options import Options, method_avail_for
-from fqzcomp5_tpu.utils import varint
+from fqzcomp5_tpu_torch import container, fastq
+from fqzcomp5_tpu_torch.blocks import (_SEQ_PARAMS, compress_with_methods,
+                                       decode_block)
+from fqzcomp5_tpu_torch.codecs import host
+from fqzcomp5_tpu_torch.constants import Method, Section, VERS_V11, bit
+from fqzcomp5_tpu_torch.drivers import Timings
+from fqzcomp5_tpu_torch.learning import MethodLearner
+from fqzcomp5_tpu_torch.options import Options, method_avail_for
+from fqzcomp5_tpu_torch.utils import varint
 from fqzcomp5_tpu_torch.engine_cuda import (decode_o0_batch,
                                             decode_o1_batch,
                                             encode_o0_batch_lazy,
@@ -749,7 +749,10 @@ def _split_block(raw: bytes, file_version: int):
 
 
 def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
-                device: torch.device) -> None:
+                device: torch.device, *, tables: str = "lut") -> None:
+    """Decode an archive, writing batches through `writer`.  `tables`
+    picks the rANS decode walks' table form ("lut" or "boundary", see
+    engine_cuda.decode_o0_batch)."""
     file_version, index_offset = container.read_header(in_fp)
 
     def flush(wave):
@@ -786,7 +789,7 @@ def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
         dev_results = {}
         # both orders' walks are launched before either is waited on
         fins = [(jobs, dec([j[1] for j in jobs], [j[2] for j in jobs],
-                           device, lazy=True))
+                           device, lazy=True, tables=tables))
                 for jobs, dec in ((jobs0, decode_o0_batch),
                                   (jobs1, decode_o1_batch)) if jobs]
         for jobs, fin in fins:

@@ -15,6 +15,14 @@ Layout recap (rANS_static32x16pr.c):
   are (ctx = previous byte, sym = byte), each chunk's first byte coded
   with ctx 0; the tail past 32*isz belongs to lane 31 and is walked on
   the host before the encode walk and after the decode walk.
+
+Decode walks read one of two table forms (``tables=``): "lut", the s3
+LUTs of the native dec prep (``rans_cuda_dec``), or "boundary", the
+boundary tables the JAX engine's FQZ5_DEC_V3 route builds from them
+(``rans_bnd_torch``, ``rans_cuda_bnd``): order-0 S-entry tables, and
+dense order-1 tables for each shift group whose alphabet has 1 to 64
+symbols; a wider group walks its s3 LUTs, as the JAX route takes its
+scan there.
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ import ctypes
 import numpy as np
 import torch
 
-from fqzcomp5_tpu.codecs import native
-from fqzcomp5_tpu_torch.ops import backend, rans_cuda_dec
+from fqzcomp5_tpu_torch.codecs import native
+from fqzcomp5_tpu_torch.ops import (backend, rans_bnd_torch, rans_cuda_bnd,
+                                    rans_cuda_dec)
 from fqzcomp5_tpu_torch.ops.rans_torch import (MASK12, RANS_L, TF_SHIFT,
                                                tables_from_numpy)
 
@@ -323,12 +332,21 @@ def _word_rows(bodies) -> tuple[np.ndarray, np.ndarray]:
     return R0, words
 
 
+def _check_tables(tables: str) -> None:
+    if tables not in ("lut", "boundary"):
+        raise ValueError(f"unknown decode tables {tables!r}")
+
+
 def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
-                    device: torch.device, *, lazy: bool = False):
-    """Batched order-0 decode.  With lazy=True, returns a zero-argument
-    finisher: the walk is launched now, and the finisher copies the
-    symbols back and decodes the <32-byte remainders on the host.
-    decode_o0_batch.calls counts the batches that reach the walk."""
+                    device: torch.device, *, lazy: bool = False,
+                    tables: str = "lut"):
+    """Batched order-0 decode over the given table form ("lut" or
+    "boundary").  With lazy=True, returns a zero-argument finisher: the
+    walk is launched now, and the finisher copies the symbols back and
+    decodes the <32-byte remainders on the host (from the s3 LUTs).
+    decode_o0_batch.calls counts the batches that reach a walk, .s3_bytes
+    and .bnd_bytes the table bytes each form uploads."""
+    _check_tables(tables)
     L = _lib()
     B = len(payloads)
     if B == 0:
@@ -346,10 +364,19 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     R0, words = _word_rows(bodies)
     t_real = np.array([sz // 32 for sz in out_szs], np.int32)
     Tmax = max(int(t_real.max()), 1)
-    syms_d, Rf_d = rans_cuda_dec.decode_o0(
-        _to(words.view(np.int16), device), _to(R0.view(np.int32), device),
-        tables_from_numpy(s3s, "s3", device=device), _to(t_real, device),
-        Tmax)
+    args = (_to(words.view(np.int16), device),
+            _to(R0.view(np.int32), device))
+    if tables == "boundary":
+        tab, f0, S, packed = rans_bnd_torch.o0_tables(s3s)
+        decode_o0_batch.bnd_bytes += tab.nbytes + f0.nbytes
+        syms_d, Rf_d, _ = rans_cuda_bnd.decode_bnd_o0(
+            *args, _to(tab, device), _to(f0, device), _to(t_real, device),
+            Tmax, S, packed=packed)
+    else:
+        decode_o0_batch.s3_bytes += s3s.nbytes
+        syms_d, Rf_d = rans_cuda_dec.decode_o0(
+            *args, tables_from_numpy(s3s, "s3", device=device),
+            _to(t_real, device), Tmax)
 
     def _finish():
         syms = syms_d.cpu().numpy()
@@ -368,10 +395,15 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
 
 
 def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
-                    device: torch.device, *, lazy: bool = False):
-    """Batched order-1 decode (lazy: see decode_o0_batch).  Streams
-    group by shift; each group's full s3 tables (256 << shift u32 per
-    stream) are uploaded, and decode_o1_batch.s3_bytes counts them."""
+                    device: torch.device, *, lazy: bool = False,
+                    tables: str = "lut"):
+    """Batched order-1 decode (lazy, tables: see decode_o0_batch).
+    Streams group by shift.  A "lut" group uploads its full s3 tables
+    (256 << shift u32 per stream, counted in decode_o1_batch.s3_bytes);
+    a "boundary" group whose alphabet has 1 to 64 symbols uploads dense
+    tables (4*A1*(A+1) bytes per stream, counted in .bnd_bytes), and a
+    wider one its s3 tables."""
+    _check_tables(tables)
     L = _lib()
     B = len(payloads)
     if B == 0:
@@ -399,12 +431,26 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         R0, words = _word_rows([parsed[i][2] for i in idxs])
         t_real = np.array([out_szs[i] // 32 for i in idxs], np.int32)
         Tmax = max(int(t_real.max()), 1)
-        decode_o1_batch.s3_bytes += s3s.nbytes
-        res = rans_cuda_dec.decode_o1(
-            _to(words.view(np.int16), device),
-            _to(R0.view(np.int32), device),
-            tables_from_numpy(s3s, "s3", device=device),
-            _to(t_real, device), Tmax, shift)
+        args = (_to(words.view(np.int16), device),
+                _to(R0.view(np.int32), device))
+        freqs = (rans_bnd_torch.freqs_from_s3(s3s, shift)
+                 if tables == "boundary" else None)
+        A = 0 if freqs is None else int(freqs.any(axis=(0, 1)).sum())
+        if 0 < A <= rans_bnd_torch.DENSE_MAX_A:
+            tab, alphabet, A, A1, last0 = \
+                rans_bnd_torch.build_o1_dense_tables(freqs, shift)
+            decode_o1_batch.bnd_bytes += tab.nbytes
+            dsyms, Rf_d, ptrf_d = rans_cuda_bnd.decode_dense_o1(
+                *args, _to(tab, device), _to(t_real, device), Tmax, shift,
+                A, A1, last0)
+            # dense indices back to bytes
+            alpha = _to(alphabet.astype(np.uint8), device)
+            res = (alpha[dsyms.to(torch.int32)], Rf_d, ptrf_d)
+        else:
+            decode_o1_batch.s3_bytes += s3s.nbytes
+            res = rans_cuda_dec.decode_o1(
+                *args, tables_from_numpy(s3s, "s3", device=device),
+                _to(t_real, device), Tmax, shift)
         groups.append((shift, idxs, words, s3s, res))
 
     def _finish():
@@ -446,5 +492,8 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
 
 
 decode_o0_batch.calls = 0
+decode_o0_batch.s3_bytes = 0
+decode_o0_batch.bnd_bytes = 0
 decode_o1_batch.calls = 0
 decode_o1_batch.s3_bytes = 0
+decode_o1_batch.bnd_bytes = 0

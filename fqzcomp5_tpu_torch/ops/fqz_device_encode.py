@@ -167,7 +167,7 @@ def prepare_fqz(qual: bytes, lens, flags, seq_buf: bytes | None,
     """Host half of the fqz device encode: parameter picking, selector
     assignment and wire header via fqz5_fqz_prepare.  Returns
     (header_bytes, FqzParams, sels)."""
-    from fqzcomp5_tpu.codecs import native
+    from fqzcomp5_tpu_torch.codecs import native
 
     L = native.lib()
     u8p = ctypes.POINTER(ctypes.c_uint8)

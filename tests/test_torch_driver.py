@@ -105,18 +105,32 @@ def test_port_decodes_golden_archives(data_dir, golden_dir, name):
 
 
 def test_cli_strips_cuda_engine():
-    assert cli._strip_cuda(["-e", "cuda", "-1", "a", "b"]) == (
-        ["-1", "a", "b"], True)
-    assert cli._strip_cuda(["-1", "-ecuda", "a"]) == (["-1", "a"], True)
-    assert cli._strip_cuda(["-e", "tpu", "a"]) == (["-e", "tpu", "a"], False)
-    arg, decomp, files = cli.parse_args(["-e", "cuda", "-d", "x", "y"])
-    assert decomp and files == ["x", "y"] and arg.engine == "auto"
+    """The engine flag: cuda by default and for -e cuda/-ecuda/-e auto,
+    host for -e host; -e tpu is refused."""
+    for argv in (["-1", "a", "b"], ["-e", "cuda", "-1", "a", "b"],
+                 ["-1", "-ecuda", "a", "b"], ["-e", "auto", "-1", "a", "b"]):
+        arg, decomp, files = cli.parse_args(argv)
+        assert arg.engine == "cuda" and files == ["a", "b"] and not decomp
+    arg, decomp, files = cli.parse_args(["-e", "host", "-d", "x", "y"])
+    assert decomp and files == ["x", "y"] and arg.engine == "host"
+    with pytest.raises(ValueError, match="-e tpu"):
+        cli.parse_args(["-e", "tpu", "a"])
 
 
-def test_cli_without_cuda_is_the_host_cli(tmp_path, data_dir):
+def test_cli_without_cuda_is_the_host_cli(tmp_path, data_dir, capsys):
+    """Only -e host runs on the CPU: with no card, the default engine
+    fails with ERROR: and writes nothing, and -e tpu and the daemon
+    verbs are refused."""
     src = data_dir / "sample.fastq"
     comp = tmp_path / "c.fqz5"
     out = tmp_path / "o.fastq"
-    assert cli.main(["-1", "-V", str(src), str(comp)]) == 0
-    assert cli.main(["-d", "-V", str(comp), str(out)]) == 0
+    assert cli.main(["-1", "-V", str(src), str(comp)]) == 1
+    assert not comp.exists()
+    assert "needs a CUDA device" in capsys.readouterr().err
+    for argv in (["-e", "tpu", "-1", str(src), str(comp)], ["--daemon"]):
+        assert cli.main(argv) == 1
+        assert capsys.readouterr().err.startswith("ERROR:")
+    assert cli.main(["-e", "host", "-1", "-V", str(src), str(comp)]) == 0
+    assert cli.main(["-e", "host", "-d", "-V", str(comp), str(out)]) == 0
     assert out.read_bytes() == src.read_bytes()
+    assert cli.main(["--check", str(comp)]) == 0

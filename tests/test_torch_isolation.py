@@ -1,5 +1,7 @@
-"""The port runs without JAX, and `-e cuda` never runs on the CPU."""
+"""The port runs without JAX and without the JAX package, and only
+`-e host` runs on the CPU."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -23,18 +25,29 @@ _SCRIPT = textwrap.dedent("""
         recs.append(b"@r%d\\n" % i + s + b"\\n+\\n" + q + b"\\n")
     path = sys.argv[1]
     open(path, "wb").write(b"".join(recs))
-    from fqzcomp5_tpu.drivers import make_fastq_writer
+    from fqzcomp5_tpu_torch.drivers import make_fastq_writer
     cpu = torch.device("cpu")
     for preset in ("-3", "-5"):
         arg, _, _ = cli.parse_args([preset, "-V"])
-        comp, out = io.BytesIO(), io.BytesIO()
+        comp = io.BytesIO()
         cuda_driver.encode_file(path, comp, arg, cuda_driver.Timings(), cpu)
-        comp.seek(0)
-        cuda_driver.decode_file(comp, make_fastq_writer(out, arg), arg,
-                                cuda_driver.Timings(), cpu)
-        assert out.getvalue() == b"".join(recs)
-    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    print("JAX_MODULES", loaded)
+        # both table forms of the rANS decode walks (FQZ5_DEC_V3)
+        for tables in ("lut", "boundary"):
+            comp.seek(0)
+            out = io.BytesIO()
+            cuda_driver.decode_file(comp, make_fastq_writer(out, arg), arg,
+                                    cuda_driver.Timings(), cpu,
+                                    tables=tables)
+            assert out.getvalue() == b"".join(recs)
+    # -e host: the host engine on the CPU, through the port's CLI
+    for argv in (["-e", "host", "-3", "-V", path, path + ".fqz5"],
+                 ["-e", "host", "-d", "-V", path + ".fqz5", path + ".out"]):
+        assert cli.main(argv) == 0
+    assert open(path + ".out", "rb").read() == b"".join(recs)
+    for pkg in ("jax", "fqzcomp5_tpu"):
+        loaded = [m for m in sys.modules
+                  if m == pkg or m.startswith(pkg + ".")]
+        print("MODULES", pkg, loaded)
 """)
 
 
@@ -51,7 +64,30 @@ def test_port_never_imports_jax(tmp_path):
                        capture_output=True, text=True, env=_env(), cwd=ROOT,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "JAX_MODULES []" in r.stdout
+    assert "MODULES jax []" in r.stdout
+    assert "MODULES fqzcomp5_tpu []" in r.stdout
+
+
+def _imports(path):
+    """Top-level package names of the modules a source file imports."""
+    with open(path) as fp:
+        tree = ast.parse(fp.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return {n.split(".")[0] for n in names}
+
+
+def test_port_sources_never_import_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "fqzcomp5_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = {f: _imports(f) & {"fqzcomp5_tpu", "jax"} for f in files}
+    assert not {f: b for f, b in bad.items() if b}
 
 
 def _fastq(tmp_path):
@@ -65,11 +101,13 @@ def _fastq(tmp_path):
 
 def test_cuda_engine_without_gpu_fails_and_writes_nothing(tmp_path):
     src = _fastq(tmp_path)
-    for argv, msg in ((["-1"], "needs a CUDA device"),
-                      (["-5"], "needs a CUDA device")):
+    for argv, msg in ((["-e", "cuda", "-1"], "needs a CUDA device"),
+                      (["-e", "cuda", "-5"], "needs a CUDA device"),
+                      (["-1"], "needs a CUDA device"),
+                      (["-e", "tpu"], "JAX package's engine")):
         comp = tmp_path / "c.fqz5"
         r = subprocess.run(
-            [sys.executable, "-m", "fqzcomp5_tpu_torch.cli", "-e", "cuda",
+            [sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
              *argv, str(src), str(comp)],
             capture_output=True, text=True, env=_env(), cwd=ROOT,
             timeout=120)
