@@ -22,9 +22,14 @@ Phases, each printed with its time; any failure exits non-zero:
      against the CPU on one small input.  Model evolution: 65,536
      contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256 slots,
      2^20 TinyModels x 256.  Range coder: 16 streams x 4,096 steps in
-     two chunks with the state carried.  Then times the evolve-256 and
-     range-coder kernels alone at main-path shapes (one context of about
-     450k occurrences; 12 streams of 2^24 steps).
+     two chunks with the state carried, and 2 streams whose first holds
+     an 0xFF run of thousands of bytes (longer than the kernel's
+     shared-memory ring of flush records) deferred across the chunk
+     boundary.  Then times kernels alone at main-path shapes: evolve-256
+     (one context of about 450k occurrences), the range coder (12
+     streams of 2^24 steps, and the -5 launch shape of 2 x 2^22), the
+     rANS encode walk (4 streams of 2^20 steps, order-0 and order-1 at
+     shift 12).
   4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
      random-walk qualities) and encodes the seq and qual of its first
      10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
@@ -56,6 +61,13 @@ given preset under cProfile and torch.profiler: writes the two tables to
 DIR (default build/profile/) and prints the device's busy time and idle
 share, the kernels' device times and the host functions that take the
 most time.
+
+    python3 chip_smoke.py --walk-times [--root DIR]
+
+only times the range coder and the rANS encode walk at the main path's
+shapes, for the fqzcomp5_tpu_torch of the checkout at DIR (default: this
+one), e.g. an unpacked parent commit, so that two versions are compared
+on one card in one call.
 """
 
 from __future__ import annotations
@@ -84,8 +96,12 @@ PREFIXES = (("-1", 4), ("-5", 1))
 # presets whose archive is decoded again through the boundary-table
 # walks, and the kernel each such decode must launch
 BOUNDARY = {"-1": "decode_bnd_o0", "-3": "decode_dense_o1"}
+# flush records the range-coder kernel's shared-memory ring holds
+# (csrc/rc_encode.cu: kStages x kRecords)
+RC_RING_RECORDS = 4 * 256
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_S = 16.7e12     # 132 SMs x 64 int32 lanes x 1.98 GHz
+CLOCK_HZ = 1.98e9         # H100 SXM boost clock, for cycles a step
 # integer operations per walked step, counted from each walk's arithmetic
 # (a lower count: index math and loop control are left out); the boundary
 # searches add two per binary-search level
@@ -142,6 +158,46 @@ def _normalise(counts, shift, np):
                       np.take_along_axis(f, am[..., None], -1)
                       + fix[..., None], -1)
     return f
+
+
+def _straddle_streams(rng, np, B: int, T: int, a: int, b: int):
+    """(cum, freq, tot) (B, T) int64 range-coder steps: random, except
+    that from step a to step b stream 0 keeps its coder interval across
+    the byte boundary (steering onto it, first, through a multiple of
+    2^24), so that every shift_low defers an 0xFF byte, about two a step;
+    after b it leaves the boundary downwards, so the run flushes as 0xFF
+    bytes a few steps later."""
+    tot = rng.integers(2, 65519, (B, T))
+    freq = np.minimum(rng.integers(1, 65519, (B, T)), tot)
+    cum = (rng.random((B, T)) * (tot - freq + 1)).astype(np.int64)
+    X, R = 0, 0xFFFFFFFF        # low + carry * 2^32, and range
+    for t in range(T):
+        across = X < 1 << 32 < X + R
+        if a <= t < b or (t >= b and across):
+            tt = 1 << 15
+            q = R // tt
+            if t >= b:
+                c, f = 0, 1
+            else:
+                bd = 1 << 32 if across else ((X >> 24) + 1) << 24
+                c, f = min((bd - X) // q, tt - 1), 1
+                if X + c * q == bd and c > 0:
+                    c, f = c - 1, 2
+            tot[0, t], cum[0, t], freq[0, t] = tt, c, f
+        q = R // int(tot[0, t])
+        X += int(cum[0, t]) * q
+        R = q * int(freq[0, t])
+        for _ in range(2):
+            if R < 1 << 24:
+                X = (X << 8) & 0xFFFFFFFF
+                R <<= 8
+    return cum, freq, tot
+
+
+def _longest_run(data, val: int, np) -> int:
+    m = np.concatenate([[0], (data == val).astype(np.int8), [0]])
+    d = np.flatnonzero(np.diff(m))
+    return int((d[1::2] - d[::2]).max()) if len(d) else 0
 
 
 def _time(fn, reps: int):
@@ -361,49 +417,77 @@ def adaptive_kernels_vs_plain(np, torch, dev):
                _max_err(k_out, p_out), k_ms, p_ms, steps,
                steps * 9 + _nbytes(counts))
 
+    def rc_case(label, cum, freq, tot, lens, chunk):
+        """B streams of up to T steps walked in chunks of `chunk` steps
+        with the state carried, kernel against plain at every chunk.
+        Returns the kernel's bytes of every stream and the deferred run
+        length (ffnum) of every stream after each chunk."""
+        B, T = tot.shape
+        cf = put(((cum << 16) | freq).astype(np.uint32).view(np.int32)
+                 .reshape(-1))
+        tt = put(tot.astype(np.int32).reshape(-1))
+        st_k = st_p = rc_torch.init_state(B, dev)
+        err = 0
+        k_tot = p_tot = 0.0
+        outs = [[] for _ in range(B)]
+        ffs = []
+        for t0 in range(0, T, chunk):
+            n = put(np.clip(lens - t0, 0, chunk).astype(np.int32))
+            off = put(np.arange(B, dtype=np.int64) * T + np.minimum(t0, lens))
+            cap = rc_torch.cap_for(chunk, int(st_k[3].max()))
+            st_in = st_k
+            k_ms, k_out = _time(
+                lambda: rc_cuda.encode_walk(cf, tt, off, n, st_in, cap), 3)
+            p_ms, p_out = _time(lambda: rc_torch.encode_walk_ref(
+                cf, tt, off, n, st_p, cap), 1)
+            err = max(err, _max_err(k_out[1:], p_out[1:]))
+            totals = k_out[1].cpu().numpy()
+            for b in range(B):
+                nb = int(totals[b])
+                err = max(err, _max_err([k_out[0][b, :nb]],
+                                        [p_out[0][b, :nb]]))
+                outs[b].append(k_out[0][b, :nb].cpu().numpy())
+            st_k, st_p = k_out[2], p_out[2]
+            ffs.append(st_k[3].cpu().numpy())
+            k_tot += k_ms
+            p_tot += p_ms
+        outs = [np.concatenate(o) for o in outs]
+        # (cum<<16|freq, tot) read per step; each chunk's states in and out
+        nchunk = -(-T // chunk)
+        record("rc_encode_walk", label, err, k_tot, p_tot, int(lens.sum()),
+               8 * int(lens.sum()) + sum(len(o) for o in outs)
+               + 2 * 4 * 5 * B * nchunk)
+        return outs, ffs
+
     # range coder: 16 ragged streams of up to 4096 steps, two chunks
     B, T, chunk = 16, 4096, 2048
     tot = rng.integers(2, 65519, (B, T))
     freq = np.minimum(rng.integers(1, 65519, (B, T)), tot)
     cum = (rng.random((B, T)) * (tot - freq + 1)).astype(np.int64)
-    # least-probable top symbols of a power-of-two total: one 0xFF run
-    # deferred across the chunk boundary
+    # least-probable top symbols of a power-of-two total
     tot[3], freq[3], cum[3] = 1 << 15, 1, (1 << 15) - 1
     tot[4] = rng.integers(2, 300, T)            # TinyModel-like totals
     freq[4] = np.maximum(1, tot[4] // 3)
     cum[4] = 0
     lens = rng.integers(0, T + 1, B)
     lens[:5] = T
-    cf = put(((cum << 16) | freq).astype(np.uint32).view(np.int32)
-             .reshape(-1))
-    tt = put(tot.astype(np.int32).reshape(-1))
-    st_k = st_p = rc_torch.init_state(B, dev)
-    err = 0
-    k_tot = p_tot = 0.0
-    out_bytes = 0
-    for t0 in (0, chunk):
-        n = put(np.clip(lens - t0, 0, chunk).astype(np.int32))
-        off = put(np.arange(B, dtype=np.int64) * T + np.minimum(t0, lens))
-        cap = rc_torch.cap_for(chunk, int(st_k[3].max()))
-        st_in = st_k
-        k_ms, k_out = _time(
-            lambda: rc_cuda.encode_walk(cf, tt, off, n, st_in, cap), 3)
-        p_ms, p_out = _time(lambda: rc_torch.encode_walk_ref(
-            cf, tt, off, n, st_p, cap), 1)
-        err = max(err, _max_err(k_out[1:], p_out[1:]))
-        totals = k_out[1].cpu().numpy()
-        out_bytes += int(totals.sum())
-        for b in range(B):
-            nb = int(totals[b])
-            err = max(err, _max_err([k_out[0][b, :nb]], [p_out[0][b, :nb]]))
-        st_k, st_p = k_out[2], p_out[2]
-        k_tot += k_ms
-        p_tot += p_ms
-    # (cum<<16|freq, tot) read per step; two chunks' states in and out
-    record("rc_encode_walk", f"B={B} T={T} in 2 chunks", err, k_tot, p_tot,
-           int(lens.sum()), 8 * int(lens.sum()) + out_bytes + 4 * 5 * B * 4)
+    rc_case(f"B={B} T={T} in 2 chunks", cum, freq, tot, lens, chunk)
 
-    # the kernels alone at main-path shapes
+    # a deferred 0xFF run longer than the kernel's shared-memory ring of
+    # flush records, deferred across the chunk boundary and flushed in
+    # the second launch
+    cum, freq, tot = _straddle_streams(rng, np, 2, T, 500, 3500)
+    outs, ffs = rc_case(f"B=2 T={T} in 2 chunks, long 0xFF run", cum, freq,
+                        tot, np.full(2, T), chunk)
+    run = _longest_run(outs[0], 0xFF, np)
+    if run <= RC_RING_RECORDS or ffs[0][0] <= 0:
+        raise AssertionError(
+            f"rc_encode_walk: the longest 0xFF run is {run} bytes (ring "
+            f"{RC_RING_RECORDS}), {ffs[0][0]} deferred at the chunk boundary")
+    log(f"  rc_encode_walk long-run case: a run of {run} 0xFF bytes, "
+        f"{ffs[0][0]} of them deferred across the chunk boundary")
+
+    # the kernel alone at a main-path shape
     sp = put(np.minimum(rng.zipf(1.2, (4, 450_000)) - 1, 255)
              .astype(np.uint8))
     ct = put(np.full(4, 450_000, np.int32))
@@ -412,25 +496,77 @@ def adaptive_kernels_vs_plain(np, torch, dev):
     log(f"  evolve_256 main-path shape C=4 T=450000: {k_ms:.3f} ms "
         f"({4 * 450_000 / k_ms / 1e3:.3f} M steps/s)")
     del sp
-    B, T = 12, 1 << 24
-    tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32)
-    freq = torch.minimum(torch.randint(1, 65519, (B * T,), device=dev,
-                                       dtype=torch.int32), tot)
-    cum = (torch.rand(B * T, device=dev) * (tot - freq + 1)).to(torch.int32)
-    cf = (cum << 16) | freq
-    off = torch.arange(B, device=dev, dtype=torch.int64) * T
-    n = torch.full((B,), T, device=dev, dtype=torch.int32)
-    st = rc_torch.init_state(B, dev)
-    cap = rc_torch.cap_for(T, 0)
-    k_ms, _ = _time(lambda: rc_cuda.encode_walk(cf, tot, off, n, st, cap), 1)
-    log(f"  rc_encode_walk main-path shape B={B} T={T}: {k_ms:.3f} ms "
-        f"({B * T / k_ms / 1e3:.3f} M steps/s)")
     for name, rows in res.items():
         bad = [r for r in rows if r[1] != 0]
         if bad:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{bad}")
     return res
+
+
+def walk_times(np, torch, dev) -> None:
+    """The range coder and the rANS encode walk alone, one launch each,
+    at the main path's shapes: the range coder at B = 12 x T = 2^24 and at
+    the -5 e2e launch shape B = 2 x T = 2^22 (CHUNK_T), the rANS walk at
+    B = 4 x T = 2^20 order-0 (uint8 plane) and order-1 (flat int32 plane)
+    at shift 12.  Uses only the wrappers' interfaces, so it times any
+    version of the package (--walk-times --root DIR)."""
+    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch, rc_cuda, rc_torch
+
+    def show(name, label, ms, T, nsteps, nbytes):
+        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsteps)
+        log(f"  walk {name} {label}: {ms:.3f} ms ({T / ms / 1e3:.3f} M "
+            f"steps/s a stream, {ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step "
+            f"at {CLOCK_HZ / 1e9:.2f} GHz)  bound {b_ms:.4f} ms ({by})")
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    for B, T in ((12, 1 << 24), (2, 1 << 22)):
+        tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32,
+                            generator=g)
+        freq = torch.minimum(torch.randint(1, 65519, (B * T,), device=dev,
+                                           dtype=torch.int32, generator=g),
+                             tot)
+        cum = (torch.rand(B * T, device=dev, generator=g)
+               * (tot - freq + 1)).to(torch.int32)
+        cf = (cum << 16) | freq
+        del cum, freq
+        off = torch.arange(B, device=dev, dtype=torch.int64) * T
+        n = torch.full((B,), T, device=dev, dtype=torch.int32)
+        st = rc_torch.init_state(B, dev)
+        cap = rc_torch.cap_for(T, 0)
+        k_ms, out = _time(
+            lambda: rc_cuda.encode_walk(cf, tot, off, n, st, cap), 1)
+        # cf and tot read per step; the bytes emitted; states in and out
+        show("rc_encode_walk", f"B={B} T={T}", k_ms, T, B * T,
+             _nbytes(cf, tot, off, n, st, *out[1:])
+             + int(out[1].to(torch.int64).sum()))
+        del cf, tot
+    # 40-symbol alphabets (quality-like), every symbol and pair coded
+    B, T, A = 4, 1 << 20, 40
+    f0 = np.zeros((B, 256), np.int64)
+    f0[:, 33:33 + A] = 1
+    f1 = np.zeros((B, 256, 256), np.int64)
+    f1[:, 33:33 + A, 33:33 + A] = 1
+    sym = torch.randint(33, 33 + A, (B, T, 32), device=dev, dtype=torch.uint8,
+                        generator=g)
+    ctx = torch.randint(33, 33 + A, (B, T, 32), device=dev,
+                        dtype=torch.int32, generator=g)
+    flat = ctx * 256 + sym.to(torch.int32)
+    del ctx
+    nsym = torch.full((B,), T * 32, device=dev, dtype=torch.int32)
+    for label, args, kw in (
+            ("o0 u8 shift12", (sym, rans_torch.tables_from_numpy(
+                _normalise(f0, 12, np), "freqs", shift=12, device=dev), 12),
+             {"nsym": nsym}),
+            ("o1 flat shift12", (flat, rans_torch.tables_from_numpy(
+                _normalise(f1, 12, np), "freqs", shift=12, device=dev), 12),
+             {})):
+        k_ms, out = _time(lambda: rans_cuda.encode_walk(*args, **kw), 1)
+        # plane, table and states read; the words emitted written
+        show("encode_walk", f"{label} B={B} T={T}", k_ms, T, B * T * 32,
+             _nbytes(*args[:2], *kw.values(), out[0], out[2])
+             + 2 * int(out[2].to(torch.int64).sum()))
 
 
 def _o0_words(datas, dev, np, torch):
@@ -885,6 +1021,12 @@ def main() -> int:
                     help="preset of the profiled encode")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
                     help="directory for the profile tables")
+    ap.add_argument("--walk-times", action="store_true",
+                    help="only time the range coder and the rANS encode "
+                    "walk at the main path's shapes")
+    ap.add_argument("--root", default=ROOT,
+                    help="with --walk-times: the checkout whose "
+                    "fqzcomp5_tpu_torch is timed")
     opts = ap.parse_args()
 
     t0 = time.monotonic()
@@ -904,6 +1046,14 @@ def main() -> int:
     log(smi)
     phase("device", t0)
 
+    if opts.walk_times:
+        sys.path.insert(0, os.path.abspath(opts.root))
+        from fqzcomp5_tpu_torch.ops import _build
+        _build.lib()
+        log(f"walk times of {os.path.dirname(_build.CSRC)} (nvcc "
+            f"{_build.build_seconds:.3f} s)")
+        walk_times(np, torch, torch.device("cuda"))
+        return 0
     sys.path.insert(0, ROOT)
     if opts.profile:
         return profile_main(np, torch, opts.level, opts.out)
@@ -920,7 +1070,8 @@ def main() -> int:
         f"{os.path.relpath(_build.lib_path(), ROOT)}")
     with open(os.path.join(_build.BUILD_DIR, "build.log")) as fp:
         for line in fp:
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 log("  ptxas: " + line.strip())
     phase("build", t0)
 
@@ -930,6 +1081,7 @@ def main() -> int:
     kres.update(bnd_kernels_vs_plain(np, torch, dev))
     jax_signatures_vs_cpu(np, torch, dev)
     kres.update(adaptive_kernels_vs_plain(np, torch, dev))
+    walk_times(np, torch, dev)
     phase("kernels", t0)
 
     from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_bnd, rc_cuda

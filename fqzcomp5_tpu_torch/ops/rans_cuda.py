@@ -46,6 +46,8 @@ def encode_walk(idx: torch.Tensor, tab: torch.Tensor, shift: int,
         _check("R0", R0, (torch.int32,), (B, 32), dev)
     if shift not in (10, 12):
         raise ValueError(f"encode_walk: shift {shift} not 10 or 12")
+    if idx.data_ptr() % 16:
+        idx = idx.clone()  # the kernel copies plane rows 16 bytes at a time
     Rf = torch.empty((B, 32), dtype=torch.int32, device=dev)
     words = torch.empty((B, T * 32), dtype=torch.int16, device=dev)
     nwords = torch.empty((B,), dtype=torch.int32, device=dev)

@@ -130,6 +130,35 @@ def tables_from_numpy(a: np.ndarray, kind: str, *, shift: int = TF_SHIFT,
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def enc_symbols(tab, shift: int):
+    """Encoder symbols of packed (f << shift) | start entries, as the
+    CUDA encode walk forms them (csrc/rans_encode.cu enc_symbol, with
+    RansEncSymbolInit's formulas): int64 arrays (x_max, rcp, rsh, bias,
+    cmpl) of tab's shape."""
+    P = np.asarray(tab).astype(np.int64) & M32
+    f = P >> shift
+    start = P & ((1 << shift) - 1)
+    big = f >= 2
+    # ceil(log2 f): the bit length of f - 1
+    sh = np.frexp(np.maximum(f - 1, 0).astype(np.float64))[1].astype(np.int64)
+    x_max = (f << (31 - shift)) - 1
+    rcp = np.where(big, ((1 << (sh + 31)) + f - 1) // np.maximum(f, 1), M32)
+    rsh = np.where(big, sh - 1, 0)
+    bias = np.where(big, start, start + (1 << shift) - 1)
+    return x_max, rcp, rsh, bias, (1 << shift) - f
+
+
+def enc_step(R, sym) -> tuple[np.ndarray, np.ndarray]:
+    """One encode step of states R (int64, < 2^31) by encoder symbols
+    sym = enc_symbols(...) entries, in the CUDA walk's reciprocal form:
+    (next R, emit)."""
+    x_max, rcp, rsh, bias, cmpl = sym
+    emit = R > x_max
+    R = np.where(emit, R >> 16, R)
+    q = ((R * rcp) >> 32) >> rsh
+    return (R + bias + q * cmpl) & M32, emit
+
+
 # ---------------------------------------------------------------------
 # int64 <-> bit-pattern helpers
 

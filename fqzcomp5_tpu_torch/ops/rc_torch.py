@@ -64,6 +64,26 @@ def cap_for(n_max: int, ff_max: int) -> int:
     return 2 * n_max + ff_max + 1
 
 
+def rc_recip(tot) -> np.ndarray:
+    """The CUDA walk's reciprocal of each tot in [1, 2^16), in its u32
+    arithmetic (csrc/rc_encode.cu rc_recip): floor(2^32 / tot), and
+    2^32 - 1 for tot 1.  Returns uint64 values."""
+    d = np.asarray(tot, np.uint64)
+    m = np.uint64(M32) // np.maximum(d, 1)
+    m = np.where(np.uint64(M32) - m * d == d - 1, m + 1, m)
+    return np.where(d <= 1, np.uint64(M32), m)
+
+
+def rc_quotient(rng, tot) -> np.ndarray:
+    """range // tot as the CUDA walk computes it: q = umulhi(range,
+    rc_recip(tot)), which is the quotient or one less, then one
+    compare-and-add.  u32 range, tot in [1, 2^16); uint64 results."""
+    n = np.asarray(rng, np.uint64)
+    d = np.asarray(tot, np.uint64)
+    q = (n * rc_recip(d)) >> np.uint64(32)
+    return q + (n - q * d >= d)
+
+
 def encode_walk_ref(cf: torch.Tensor, tot: torch.Tensor, off: torch.Tensor,
                     n: torch.Tensor, state: torch.Tensor, cap: int):
     """Walk B range coders.
