@@ -19,17 +19,21 @@ Phases, each printed with its time; any failure exits non-zero:
      (counter) and dense order-1 tables of 6 and 47 symbols at
      shift 10 and 12, with single-symbol streams and contexts; then the
      five JAX-signature functions of ops/rans_bnd_dec.py on the card
-     against the CPU on one small input.  Model evolution: 65,536
-     contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256 slots,
-     2^20 TinyModels x 256.  Range coder: 16 streams x 4,096 steps in
+     against the CPU on one small input.  The order-1 decode walk's
+     route edges: alphabets just under and just over the shared-memory
+     fit of its compact tables at shift 10 and 12 and a full byte
+     alphabet, each also with word rows cut short.  Model evolution:
+     65,536 contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256
+     slots, 2^20 TinyModels x 256; at 128 slots, in both layouts, a
+     ladder of runs that moves symbols across every lane boundary, zipf
+     symbols past the halving bound, max_sym 1, 96 and 128, and a long
+     context.  Range coder: 16 streams x 4,096 steps in
      two chunks with the state carried, and 2 streams whose first holds
      an 0xFF run of thousands of bytes (longer than the kernel's
      shared-memory ring of flush records) deferred across the chunk
      boundary.  Then times kernels alone at main-path shapes: evolve-256
-     (one context of about 450k occurrences), the range coder (12
-     streams of 2^24 steps, and the -5 launch shape of 2 x 2^22), the
-     rANS encode walk (4 streams of 2^20 steps, order-0 and order-1 at
-     shift 12).
+     (one context of about 450k occurrences) and the walks of
+     --walk-times.
   4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
      random-walk qualities) and encodes the seq and qual of its first
      10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
@@ -44,6 +48,8 @@ Phases, each printed with its time; any failure exits non-zero:
      launched in it (the encode walk at every preset, the four adaptive
      kernels at -5, each rANS decoder the decode path handed a batch,
      the boundary order-0 walk at -1 and the dense order-1 walk at -3).
+     Prints the shapes of each path's order-1 decode and evolve_128
+     launches (streams, steps, shift, alphabets; contexts, steps).
      Reports the -5 peak device memory, and encodes a 4 MB prefix at -1
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
      versions), requiring equal archives.
@@ -54,20 +60,22 @@ once) over 3.35 TB/s and its integer operations over 16.7 T int32
 operations/s (132 SMs x 64 int32 lanes x 1.98 GHz, H100 SXM at 700 W);
 library_ms is null, as no PyTorch call computes an entropy coder's walk.
 
-    python3 chip_smoke.py --profile [--level -5] [--out DIR]
+    python3 chip_smoke.py --profile [--decode] [--level=-5[,-3...]] [--out DIR]
 
-builds the kernels, makes the same corpus and encodes it once at the
-given preset under cProfile and torch.profiler: writes the two tables to
-DIR (default build/profile/) and prints the device's busy time and idle
-share, the kernels' device times and the host functions that take the
-most time.
+builds the kernels, makes the same corpus and encodes it once at each
+given preset under cProfile and torch.profiler (with --decode: encodes
+it, then profiles the decode of the archive): writes the two tables to
+DIR/<preset> (default build/profile/) and prints the device's busy time
+and idle share, the kernels' device times, the host functions that take
+the most time and the order-1 decode and evolve_128 launch shapes.
 
     python3 chip_smoke.py --walk-times [--root DIR]
 
-only times the range coder and the rANS encode walk at the main path's
-shapes, for the fqzcomp5_tpu_torch of the checkout at DIR (default: this
-one), e.g. an unpacked parent commit, so that two versions are compared
-on one card in one call.
+only times the redesigned walks alone at the main path's shapes (the
+range coder, the rANS encode walk, the order-1 decode walk, evolve_128),
+with cycles a step and their bounds, for the fqzcomp5_tpu_torch of the
+checkout at DIR (default: this one), e.g. an unpacked parent commit, so
+that two versions are compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -102,6 +110,18 @@ RC_RING_RECORDS = 4 * 256
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_S = 16.7e12     # 132 SMs x 64 int32 lanes x 1.98 GHz
 CLOCK_HZ = 1.98e9         # H100 SXM boost clock, for cycles a step
+SMS = 132                 # H100 SXM streaming multiprocessors
+# max_abs_err of the kernels' edge cases (check()), by kernel
+EDGE_ERRS: dict = {}
+# (B streams, T steps a lane, shift, symbols) of the order-1 decode walk
+# timed by --walk-times: the -3 and -1 decode launches' shapes (their
+# quality streams: 40 symbols and byte 0, 41 codes)
+WALK_DECODE_O1 = ((6, 1_494_492, 10, 40), (16, 149_925, 10, 40))
+# (C contexts, T steps, max_sym) of evolve_128 timed by --walk-times: -5
+# count buckets (short, the largest, and one of long contexts) and one
+# long context
+WALK_EVOLVE_128 = ((40385, 1024, 96), (41535, 4096, 96), (36, 469_362, 96),
+                   (1, 100_000, 96))
 # integer operations per walked step, counted from each walk's arithmetic
 # (a lower count: index math and loop control are left out); the boundary
 # searches add two per binary-search level
@@ -404,6 +424,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         # each used symbol read once, (cf, tot) written per step
         record(name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms, p_ms,
                steps, steps * 9 + _nbytes(ct, ms))
+    evolve_edge_cases(np, torch, dev, rng)
     for nsym in (4, 2):
         C, T = 1 << 20, 256
         counts = put(rng.integers(0, T + 1, C).astype(np.int32))
@@ -504,14 +525,130 @@ def adaptive_kernels_vs_plain(np, torch, dev):
     return res
 
 
+def _o1_walk_case(B, T, shift, A, g, np, torch, dev, walk=True):
+    """B order-1 streams of T steps a lane at `shift`, each lane a random
+    walk (steps -2..2) over A quality-like symbols from 33, as the
+    corpus's qualities are, or (walk=False) uniform over bytes 1..A:
+    encoded on the card by the encode walk.  Returns (decode_o1
+    arguments, the symbols (B, T, 32) uint8)."""
+    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
+
+    if walk:
+        step = torch.randint(-2, 3, (B, T, 32), device=dev,
+                             dtype=torch.int16, generator=g)
+        sym = (step.cumsum(1, dtype=torch.int32) % A + 33).to(torch.int32)
+        del step
+    else:
+        sym = torch.randint(1, A + 1, (B, T, 32), device=dev,
+                            dtype=torch.int32, generator=g)
+        sym[:, 0] = torch.arange(32, device=dev) % A + 1
+        sym[:, 1:A // 32 + 3] = (torch.arange(32 * (A // 32 + 2), device=dev)
+                                 .view(-1, 32) % A + 1)
+    flat = sym.clone()
+    flat[:, 1:] += sym[:, :-1] * 256      # context: the lane's last symbol
+    counts = torch.stack([torch.bincount(flat[b].view(-1), minlength=65536)
+                          for b in range(B)]).cpu().numpy()
+    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
+    Rf, w, nw = rans_cuda.encode_walk(
+        flat, rans_torch.tables_from_numpy(freqs, "freqs", shift=shift,
+                                           device=dev), shift)
+    del flat
+    nw = nw.cpu().numpy()
+    cap = w.shape[1]
+    words = torch.zeros((B, max(1, int(nw.max()))), dtype=torch.int16,
+                        device=dev)
+    for b, n in enumerate(nw):
+        words[b, :n] = w[b, cap - n:]
+    del w
+    s3 = rans_torch.tables_from_numpy(
+        rans_torch.build_s3(freqs, shift).reshape(B, -1), "s3", device=dev)
+    t_real = torch.full((B,), T, dtype=torch.int32, device=dev)
+    return (words, Rf, s3, t_real, T, shift), sym.to(torch.uint8)
+
+
+def check(name: str, label: str, got, want) -> None:
+    """Kernel result against its plain version, zero tolerance; kept in
+    EDGE_ERRS for the kernel's max_abs_err."""
+    err = _max_err(got, want)
+    EDGE_ERRS.setdefault(name, []).append(err)
+    log(f"  {name} {label}: max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             "version")
+
+
+def evolve_edge_cases(np, torch, dev, rng) -> None:
+    """evolve_128 in both layouts (one warp a context below
+    csrc/fqz_evolve.cu's kThreadLayoutMinC contexts, one thread a context
+    from it) against evolve_ref: a ladder of runs (every symbol climbs
+    the bubble order across every lane boundary; many halvings), zipf
+    symbols past the halving bound, max_sym 1, 96 and 128, and a long
+    context."""
+    from fqzcomp5_tpu_torch.ops import fqz_model_torch, model_cuda
+
+    ladder = np.concatenate([np.full(130 + i, 127 - i) for i in range(128)])
+    cases = [("ladder C=1", ladder[None, :], [len(ladder)], [128]),
+             ("long context C=1 T=20000",
+              np.minimum(rng.zipf(1.3, (1, 20000)) - 1, 95), [20000], [96])]
+    for C, T in ((4, 6000), (2048, 4600)):
+        z = np.minimum(rng.zipf(1.2, (C, T)) - 1, 127)
+        counts = rng.integers(T // 2, T + 1, C)
+        ms = np.resize([1, 96, 128], C)
+        cases.append((f"C={C} T={T} max_sym 1/96/128", z, counts, ms))
+    for label, sp, counts, ms in cases:
+        ms = np.asarray(ms, np.int32)
+        sp = np.minimum(sp, ms[:, None] - 1).astype(np.uint8)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                (sp, np.asarray(counts, np.int32), ms)]
+        check("evolve_128", label, model_cuda.evolve_128(*args),
+              fqz_model_torch.evolve_ref(*args, 128))
+
+
+def decode_o1_edge_cases(np, torch, dev) -> None:
+    """decode_o1 against decode_o1_ref where csrc/rans_decode.cu changes
+    route: alphabets (byte 0 counted) just under and just over the
+    shared-memory fit of its compact tables at shifts 10 and 12, and a
+    full byte alphabet (the s3 route); each also with its word rows cut
+    to a quarter, so that lanes read past a row's end.  (The B = 64 case
+    holds a single-symbol stream, single-symbol contexts at shift 12 and
+    streams that wrap the kernel's 2,048-word ring many times.)"""
+    from fqzcomp5_tpu_torch.ops import rans_cuda_dec, rans_torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    for shift, A, route in ((12, 51, "shared"), (12, 52, "global"),
+                            (10, 140, "shared"), (10, 141, "global"),
+                            (12, 256, "s3")):
+        args, sym = _o1_walk_case(8, 1024, shift, A - 1, g, np, torch, dev,
+                                  walk=False)
+        s3 = args[2].cpu().numpy().view(np.uint32)
+        tabs = [rans_torch.o1_compact_tables(r, shift) for r in s3]
+        if {(len(t[0]), t[1]) for t in tabs} != {(A, route)}:
+            raise AssertionError(f"decode_o1 case A={A} shift{shift} is not "
+                                 f"on the {route} route")
+        got = rans_cuda_dec.decode_o1(*args)
+        if not torch.equal(got[0], sym):
+            raise AssertionError(f"decode_o1 A={A} shift{shift}: the "
+                                 "symbols do not round-trip")
+        check("decode_o1", f"A={A} shift{shift} {route} (round-trips)", got,
+              rans_torch.decode_o1_ref(*args))
+        cut = (args[0][:, :max(1, args[0].shape[1] // 4)].contiguous(),
+               *args[1:])
+        check("decode_o1", f"A={A} shift{shift} {route} rows cut short",
+              rans_cuda_dec.decode_o1(*cut), rans_torch.decode_o1_ref(*cut))
+
+
 def walk_times(np, torch, dev) -> None:
-    """The range coder and the rANS encode walk alone, one launch each,
-    at the main path's shapes: the range coder at B = 12 x T = 2^24 and at
-    the -5 e2e launch shape B = 2 x T = 2^22 (CHUNK_T), the rANS walk at
-    B = 4 x T = 2^20 order-0 (uint8 plane) and order-1 (flat int32 plane)
-    at shift 12.  Uses only the wrappers' interfaces, so it times any
-    version of the package (--walk-times --root DIR)."""
-    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch, rc_cuda, rc_torch
+    """The hand-redesigned walks alone, one launch each, at the main
+    path's shapes: the range coder at B = 12 x T = 2^24 and at the -5 e2e
+    launch shape B = 2 x T = 2^22 (CHUNK_T), the rANS encode walk at B = 4
+    x T = 2^20 order-0 (uint8 plane) and order-1 (flat int32 plane) at
+    shift 12, the order-1 decode walk at the -3 and -1 launch shapes
+    (WALK_DECODE_O1), and the 128-slot model evolution at -5's bucket
+    shapes (WALK_EVOLVE_128).  Uses only the wrappers' interfaces, so it
+    times any version of the package (--walk-times --root DIR)."""
+    from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda, rans_cuda_dec,
+                                        rans_torch, rc_cuda, rc_torch)
 
     def show(name, label, ms, T, nsteps, nbytes):
         b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsteps)
@@ -521,6 +658,32 @@ def walk_times(np, torch, dev) -> None:
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
+    for B, T, shift, A in WALK_DECODE_O1:
+        args, sym = _o1_walk_case(B, T, shift, A, g, np, torch, dev)
+        k_ms, out = _time(lambda: rans_cuda_dec.decode_o1(*args), 1)
+        if not torch.equal(out[0], sym):
+            raise AssertionError(f"decode_o1 B={B} T={T} shift{shift}: the "
+                                 "symbols do not round-trip")
+        # words, states, tables and lengths read; symbols, states written
+        show("decode_o1", f"B={B} T={T} shift{shift} A={A}", k_ms, T,
+             B * T * 32, _nbytes(*args[:4], *out))
+        del args, sym, out
+    rng = np.random.default_rng(SEED)
+    for C, T, M in WALK_EVOLVE_128:
+        counts = np.full(C, T, np.int32) if C == 1 else \
+            rng.integers(1, T + 1, C).astype(np.int32)
+        sp = np.minimum(rng.zipf(1.3, (C, T)) - 1, M - 1).astype(np.uint8)
+        args = [torch.from_numpy(a).to(dev) for a in
+                (sp, counts, np.full(C, M, np.int32))]
+        k_ms, _ = _time(lambda: model_cuda.evolve_128(*args), 3)
+        steps = int(counts.sum())
+        b_ms, by = _bound(steps * 9 + 8 * C, OPS_PER_STEP["evolve_128"]
+                          * steps)
+        log(f"  walk evolve_128 C={C} T={T} max_sym={M}: {k_ms:.3f} ms "
+            f"({steps / k_ms / 1e3:.3f} M steps/s; "
+            f"{k_ms * 1e-3 * CLOCK_HZ * SMS / steps:.1f} SM-cycles a step, "
+            f"{k_ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step of the longest "
+            f"context)  bound {b_ms:.4f} ms ({by})")
     for B, T in ((12, 1 << 24), (2, 1 << 22)):
         tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32,
                             generator=g)
@@ -932,6 +1095,80 @@ def card_vs_cpu(src: str, work: str, lvl: str, mb: int) -> None:
         os.remove(p)
 
 
+class LaunchShapes:
+    """Inside a with block, records the shape of every s3-LUT rANS decode
+    and 128-slot evolve launch (through a wrapper around the package's
+    function, which it calls unchanged) and logs them at the end with
+    their bounds: B, T, word-row width, lengths (and shift and each
+    stream's alphabet at order 1) of the decodes; C, T and steps of the
+    evolves."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.seen = []
+
+    def __enter__(self):
+        from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_dec
+
+        self.saved = ((rans_cuda_dec, "decode_o0", rans_cuda_dec.decode_o0),
+                      (rans_cuda_dec, "decode_o1", rans_cuda_dec.decode_o1),
+                      (model_cuda, "evolve_128", model_cuda.evolve_128))
+        for mod, name, fn in self.saved:
+            def shim(*a, _fn=fn, _name=name, **kw):
+                # shapes, and the small tensors read afterwards
+                self.seen.append((_name, a[0].shape, a[1:] if
+                                  _name.startswith("decode") else a[1]))
+                return _fn(*a, **kw)
+            # the wrapper counts its launches on the module's name, now
+            # the shim's: carried over, and back at the end
+            shim.launches = fn.launches
+            setattr(mod, name, shim)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+        import torch
+
+        evolves = []
+        evolve_steps = evolve_bytes = 0
+        for name, shape, a in self.seen:
+            if name.startswith("decode"):
+                R0, s3, t_real, T = a[:4]
+                B, W = shape
+                steps = int(t_real.to(torch.int64).clamp(0, T).sum()) * 32
+                # words, states, tables, lengths read; symbols, states,
+                # word counts written
+                b_ms, by = _bound(2 * B * W + _nbytes(R0, s3, t_real, R0)
+                                  + B * T * 32 + 4 * B,
+                                  OPS_PER_STEP[name] * steps)
+                alph = ""
+                if name == "decode_o1":
+                    alph = []
+                    for row in s3:
+                        v = row[row != 0] & 0xFF
+                        alph.append(int(torch.unique(torch.cat(
+                            [v, v.new_zeros(1)])).numel()))
+                    alph = f" shift={a[4]} alphabets={alph}"
+                log(f"launch shape in {self.what}: {name} B={B} T={T} W={W}"
+                    f"{alph} t_real={t_real.tolist()} bound {b_ms:.4f} ms "
+                    f"({by})")
+            else:
+                steps = int(a.sum())
+                evolve_steps += steps
+                evolve_bytes += steps * 9 + 8 * shape[0]
+                evolves.append(f"{shape[0]}x{shape[1]}({steps})")
+        if evolves:
+            b_ms, by = _bound(evolve_bytes,
+                              OPS_PER_STEP["evolve_128"] * evolve_steps)
+            log(f"launch shapes in {self.what}: evolve_128 CxT(steps) "
+                f"{' '.join(evolves)}; bound of them all {b_ms:.4f} ms "
+                f"({by})")
+        self.seen = []
+        return False
+
+
 def _merge_seconds(spans) -> float:
     """Seconds covered by the union of (start_us, end_us) spans."""
     busy = 0.0
@@ -943,9 +1180,11 @@ def _merge_seconds(spans) -> float:
     return busy / 1e6
 
 
-def profile_encode(src: str, work: str, lvl: str, out_dir: str) -> None:
-    """Encode src at lvl through the port's CLI under cProfile and
-    torch.profiler; write both tables to out_dir and print the device's
+def profile_run(src: str, work: str, lvl: str, out_dir: str,
+                decode: bool) -> None:
+    """Encode src at lvl through the port's CLI (and, with decode, decode
+    the archive) under cProfile and torch.profiler, profiling the encode
+    or the decode; write both tables to out_dir and print the device's
     busy time, its idle share, per-kernel device time and the host
     functions that take the most time."""
     import cProfile
@@ -958,21 +1197,33 @@ def profile_encode(src: str, work: str, lvl: str, out_dir: str) -> None:
 
     os.makedirs(out_dir, exist_ok=True)
     comp = os.path.join(work, "profile.fqz5")
-    cp = cProfile.Profile()
-    t1 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as tp:
-        cp.enable()
+    out = os.path.join(work, "profile.fastq")
+    if decode:
         run_cli(["-e", "cuda", lvl, src, comp])
-        cp.disable()
-        torch.cuda.synchronize()
-    wall = time.monotonic() - t1
+        argv = ["-e", "cuda", "-d", comp, out]
+    else:
+        argv = ["-e", "cuda", lvl, src, comp]
+    what = f"{lvl} {'decode' if decode else 'encode'}"
+    cp = cProfile.Profile()
+    with LaunchShapes(what):
+        t1 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tp:
+            cp.enable()
+            run_cli(argv)
+            cp.disable()
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+    if decode:
+        same(src, out)
+        os.remove(out)
     dev = [e for e in tp.events() if e.device_type == DeviceType.CUDA]
     busy = _merge_seconds((e.time_range.start, e.time_range.end)
                           for e in dev)
-    log(f"profile {lvl}: {os.path.getsize(src)} -> {os.path.getsize(comp)} "
-        f"bytes; wall {wall:.3f} s (profiled); device busy {busy:.3f} s, "
-        f"idle {100 * (1 - busy / wall):.1f}% ({len(dev)} device events)")
+    log(f"profile {what}: {os.path.getsize(src)} <-> "
+        f"{os.path.getsize(comp)} bytes; wall {wall:.3f} s (profiled); "
+        f"device busy {busy:.3f} s, idle {100 * (1 - busy / wall):.1f}% "
+        f"({len(dev)} device events)")
     per = {}
     for e in dev:
         n, us = per.get(e.name, (0, 0.0))
@@ -996,7 +1247,7 @@ def profile_encode(src: str, work: str, lvl: str, out_dir: str) -> None:
     os.remove(comp)
 
 
-def profile_main(np, torch, lvl: str, out_dir: str) -> int:
+def profile_main(np, torch, levels: str, out_dir: str, decode: bool) -> int:
     from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import _build
 
@@ -1007,7 +1258,8 @@ def profile_main(np, torch, lvl: str, out_dir: str) -> int:
     try:
         src = os.path.join(work, "in.fastq")
         make_corpus(src, CORPUS_MB, np)
-        profile_encode(src, work, lvl, out_dir)
+        for lvl in levels.split(","):
+            profile_run(src, work, lvl, os.path.join(out_dir, lvl), decode)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -1018,12 +1270,15 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile one encode of the corpus instead")
     ap.add_argument("--level", default="-5",
-                    help="preset of the profiled encode")
+                    help="preset(s) of the profiled run, comma-separated")
+    ap.add_argument("--decode", action="store_true",
+                    help="with --profile: profile the decode of the "
+                    "preset's archive instead of the encode")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
                     help="directory for the profile tables")
     ap.add_argument("--walk-times", action="store_true",
-                    help="only time the range coder and the rANS encode "
-                    "walk at the main path's shapes")
+                    help="only time the redesigned walks at the main "
+                    "path's shapes")
     ap.add_argument("--root", default=ROOT,
                     help="with --walk-times: the checkout whose "
                     "fqzcomp5_tpu_torch is timed")
@@ -1056,7 +1311,7 @@ def main() -> int:
         return 0
     sys.path.insert(0, ROOT)
     if opts.profile:
-        return profile_main(np, torch, opts.level, opts.out)
+        return profile_main(np, torch, opts.level, opts.out, opts.decode)
 
     t0 = time.monotonic()
     from fqzcomp5_tpu_torch import engine_cuda
@@ -1080,6 +1335,7 @@ def main() -> int:
     kres = kernels_vs_plain(np, torch, dev)
     kres.update(bnd_kernels_vs_plain(np, torch, dev))
     jax_signatures_vs_cpu(np, torch, dev)
+    decode_o1_edge_cases(np, torch, dev)
     kres.update(adaptive_kernels_vs_plain(np, torch, dev))
     walk_times(np, torch, dev)
     phase("kernels", t0)
@@ -1137,7 +1393,8 @@ def main() -> int:
         for lvl, runs in PATHS:
             reset()
             torch.cuda.reset_peak_memory_stats()
-            comp, dec_s = e2e(src, nbytes, work, lvl)
+            with LaunchShapes(lvl):
+                comp, dec_s = e2e(src, nbytes, work, lvl)
             log(f"peak device memory in the {lvl} run: "
                 f"{torch.cuda.max_memory_allocated()} bytes")
             lut_bytes = read(lvl, runs, {"decode_o0": "decode_o0",
@@ -1189,7 +1446,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "fqzcomp5_tpu_torch/" + src_of[name],
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(r[1] for r in rows),
+            "max_abs_err": max(r[1] for r in rows + [
+                (None, e) for e in EDGE_ERRS.get(name, [])]),
             "ms": sum(r[2] for r in rows) / n,
             "plain_ms": sum(r[3] for r in rows) / n,
             "bound_ms": sum(r[4] for r in rows) / n,

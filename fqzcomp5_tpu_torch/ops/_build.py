@@ -99,7 +99,7 @@ def _register(L: ctypes.CDLL) -> None:
         vp, i64, vp, vp, vp, i32, i32, vp, vp, vp]
     L.fqz5_rans_decode_o1.restype = i32
     L.fqz5_rans_decode_o1.argtypes = [
-        vp, i64, vp, vp, i32, vp, i32, i32, vp, vp, vp, vp]
+        vp, i64, vp, vp, i32, vp, i32, i32, vp, vp, vp, vp, i64, vp]
     L.fqz5_rans_decode_bnd_o0.restype = i32
     L.fqz5_rans_decode_bnd_o0.argtypes = [
         vp, i64, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp]

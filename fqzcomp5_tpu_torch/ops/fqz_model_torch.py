@@ -102,6 +102,59 @@ def evolve_ref(symplane: torch.Tensor, counts: torch.Tensor,
     return out_cf, out_tot
 
 
+def evolve_prefix_mirror(symplane, counts, max_sym, cap: int,
+                         step_inc: int = 16):
+    """numpy mirror of csrc/fqz_evolve.cu's warp layout (evolve_kernel):
+    per context, 32 lanes of K = cap/32 slots, each slot's symbol,
+    frequency and cu (the frequencies of every slot before it), updated
+    step by step as the kernel updates them: the bump adds step_inc to
+    the owner's slot and to cu of every later slot, a halving sums the
+    prefixes anew, a swap inside a lane rewrites two entries, and a swap
+    across a lane boundary goes through the one value each side sends.
+    Same arguments and results as evolve_ref, as numpy int32 arrays."""
+    sp = np.asarray(symplane).astype(np.int64)
+    C, T = sp.shape
+    K = cap // 32
+    out_cf = np.zeros((C, T), np.int64)
+    out_tot = np.zeros((C, T), np.int64)
+    for c in range(C):
+        ms = int(max_sym[c])
+        sy = np.arange(cap, dtype=np.int64).reshape(32, K)
+        fr = (sy < ms).astype(np.int64)
+        cu = np.minimum(sy, ms)
+        tot = ms
+        for t in range(min(int(counts[c]), T)):
+            s = int(sp[c, t])
+            hit = np.argwhere(sy == s)
+            found = len(hit) > 0
+            o, kl = (int(hit[0, 0]), int(hit[0, 1])) if found else (32, -1)
+            if found:
+                out_cf[c, t] = int(cu[o, kl]) << 16 | int(fr[o, kl])
+                fr[o, kl] += step_inc
+                cu[o, kl + 1:] += step_inc
+                cu[o + 1:] += step_inc
+            out_tot[c, t] = tot
+            tot += step_inc
+            if tot > K_MAX_FREQ:
+                fr -= fr >> 1
+                flat = fr.reshape(-1)
+                cu = (np.cumsum(flat) - flat).reshape(32, K)
+                tot = int(flat.sum())
+            if found and kl > 0 and fr[o, kl] > fr[o, kl - 1]:
+                fv, fp = fr[o, kl], fr[o, kl - 1]
+                sy[o, kl], sy[o, kl - 1] = sy[o, kl - 1], s
+                fr[o, kl], fr[o, kl - 1] = fp, fv
+                cu[o, kl] = cu[o, kl - 1] + fv
+            if found and o > 0:
+                sent = int(fr[o, 0]) if kl == 0 else 0    # owner's value
+                fprev, sprev = int(fr[o - 1, K - 1]), int(sy[o - 1, K - 1])
+                if sent > fprev:
+                    fr[o - 1, K - 1], sy[o - 1, K - 1] = sent, s
+                    cu[o, 0] += sent - fprev
+                    fr[o, 0], sy[o, 0] = fprev, sprev
+    return out_cf.astype(np.int32), out_tot.astype(np.int32)
+
+
 def tiny_evolve_ref(symplane: torch.Tensor, counts: torch.Tensor,
                     nsym: int):
     """Evolve C independent TinyModels of nsym (2 or 4) symbols

@@ -62,16 +62,22 @@ def decode_o1(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
     if shift not in (10, 12):
         raise ValueError(f"decode_o1: shift {shift} not 10 or 12")
     B, W, dev = _check_common(words, R0, s3, t_real, 256 << shift)
+    if s3.data_ptr() % 16:
+        s3 = s3.clone()  # the kernel reads s3 rows 16 bytes at a time
     syms = torch.empty((B, T, 32), dtype=torch.uint8, device=dev)
     Rf = torch.empty((B, 32), dtype=torch.int32, device=dev)
     ptrf = torch.empty((B,), dtype=torch.int32, device=dev)
+    # tables of the streams too wide for shared memory: at most 255
+    # slot-table rows and 255 x 256 packed words a stream
+    stride = (256 << shift) + 4 * 256 * 256
+    scratch = torch.empty((B, stride), dtype=torch.uint8, device=dev)
     L = _build.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = L.fqz5_rans_decode_o1(
             words.data_ptr(), W, R0.data_ptr(), s3.data_ptr(), shift,
             t_real.data_ptr(), B, T, syms.data_ptr(), Rf.data_ptr(),
-            ptrf.data_ptr(), stream)
+            ptrf.data_ptr(), scratch.data_ptr(), stride, stream)
     _build.check(rc, "decode_o1")
     decode_o1.launches += 1
     return syms, Rf, ptrf

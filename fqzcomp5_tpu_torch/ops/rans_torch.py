@@ -27,6 +27,11 @@ RANS_L = 1 << 15
 TF_SHIFT = 12     # order-0
 MASK12 = (1 << TF_SHIFT) - 1
 M32 = 0xFFFFFFFF
+# the order-1 decode kernel's compact tables (csrc/rans_decode.cu): the
+# zero entry's flag in a packed word, and the shared-memory bytes its
+# slot tables and packed words may take (kSmemBytes - kHeadBytes)
+O1_ZERO_FLAG = 1 << 12
+O1_TABLE_BYTES = 232448 - 9104
 
 
 # ---------------------------------------------------------------------
@@ -310,3 +315,91 @@ def decode_o1_ref(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
         syms[t] = last.to(torch.uint8)
     return (syms.transpose(0, 1).contiguous(), as_i32(R),
             ptr.to(torch.int32))
+
+
+# ---------------------------------------------------------------------
+# numpy mirror of the order-1 decode kernel's compact tables and walk
+
+def o1_compact_tables(s3_row: np.ndarray, shift: int):
+    """The compact tables csrc/rans_decode.cu's order-1 prologue builds
+    from one stream's s3 LUTs (256 << shift u32): (alpha (A,) bytes, in
+    order, byte 0 first; route "shared", "global" or "s3"; slot (A, tot)
+    uint8 codes, code A for a zero entry; ptab (A, A+1) uint32 packed
+    f << 16 | start, column A the zero entry).  slot and ptab are None on
+    the "s3" route (a 256-byte alphabet).  Entries the kernel leaves
+    unwritten (codes that no slot of the row gives) are 0 here."""
+    tot = 1 << shift
+    s3 = np.asarray(s3_row, np.uint32).reshape(256, tot).astype(np.int64)
+    present = np.zeros(256, bool)
+    present[0] = True
+    present[s3[s3 != 0] & 0xFF] = True
+    alpha = np.flatnonzero(present)
+    A = len(alpha)
+    if A > 255:
+        return alpha, "s3", None, None
+    route = ("shared" if A * tot + 4 * A * (A + 1) <= O1_TABLE_BYTES
+             else "global")
+    dense = np.zeros(256, np.int64)
+    dense[alpha] = np.arange(A)
+    rows = s3[alpha]
+    nz = rows != 0
+    code = np.where(nz, dense[rows & 0xFF], A)
+    f = rows >> (shift + 8)
+    f = np.where(f == 0, tot, f)
+    start = (np.arange(tot)[None, :] - ((rows >> 8) & (tot - 1))) & 0xFFF
+    ptab = np.zeros((A, A + 1), np.int64)
+    ctx = np.broadcast_to(np.arange(A)[:, None], rows.shape)
+    ptab[ctx[nz], code[nz]] = f[nz] << 16 | start[nz]
+    ptab[:, A] = tot << 16 | O1_ZERO_FLAG
+    return alpha, route, code.astype(np.uint8), ptab.astype(np.uint32)
+
+
+def decode_o1_compact(words, R0, s3, t_real, T: int, shift: int):
+    """The order-1 decode walk as the kernel steps it over
+    o1_compact_tables (the "s3" route steps as decode_o1_ref), in numpy:
+    the same arguments and results as decode_o1_ref, as numpy arrays
+    (syms (B, T, 32) uint8, Rf (B, 32) uint32, ptrf (B,) int32)."""
+    words = np.asarray(words).view(np.uint16).astype(np.int64)
+    R0 = np.asarray(R0).view(np.uint32).astype(np.int64)
+    s3 = np.asarray(s3).view(np.uint32)
+    B, W = words.shape
+    tot = 1 << shift
+    mask = tot - 1
+    syms = np.empty((B, T, N), np.uint8)
+    Rf = np.empty((B, N), np.uint32)
+    ptrf = np.empty(B, np.int32)
+    for b in range(B):
+        alpha, route, slot, ptab = o1_compact_tables(s3[b], shift)
+        lut = s3[b].astype(np.int64)
+        A = len(alpha)
+        R = R0[b].copy()
+        ctx = np.zeros(N, np.int64)
+        ptr = 0
+        tr = max(0, min(int(t_real[b]), T))
+        for t in range(tr):
+            m = R & mask
+            if route == "s3":
+                S = lut[(ctx << shift) + m]
+                F = S >> (shift + 8)
+                F = np.where(F == 0, tot, F)
+                Rn = (F * (R >> shift) + ((S >> 8) & mask)) & M32
+                ctx = S & 0xFF
+            else:
+                code = slot[ctx, m].astype(np.int64)
+                P = ptab[ctx, code].astype(np.int64)
+                ctx = np.where(code == A, 0, code)
+                start = np.where(P & O1_ZERO_FLAG, m, P & 0xFFF)
+                Rn = ((P >> 16) * (R >> shift) + m - start) & M32
+            # the ring feed: lane order, reads past the row take its last
+            need = Rn < RANS_L
+            i = ptr + np.cumsum(need) - 1
+            v = words[b, np.minimum(i, W - 1)]
+            Rn = np.where(need, ((Rn << 16) | v) & M32, Rn)
+            ptr += int(need.sum())
+            R = Rn
+            syms[b, t] = ctx if route == "s3" else alpha[ctx]
+        last = ctx if route == "s3" else alpha[ctx]
+        syms[b, tr:] = last
+        Rf[b] = R
+        ptrf[b] = ptr
+    return syms, Rf, ptrf
