@@ -27,13 +27,17 @@ Phases, each printed with its time; any failure exits non-zero:
      slots, 2^20 TinyModels x 256; at 128 slots, in both layouts, a
      ladder of runs that moves symbols across every lane boundary, zipf
      symbols past the halving bound, max_sym 1, 96 and 128, and a long
-     context.  Range coder: 16 streams x 4,096 steps in
-     two chunks with the state carried, and 2 streams whose first holds
-     an 0xFF run of thousands of bytes (longer than the kernel's
-     shared-memory ring of flush records) deferred across the chunk
-     boundary.  Then times kernels alone at main-path shapes: evolve-256
-     (one context of about 450k occurrences) and the walks of
-     --walk-times.
+     context; the TinyModel walk in both layouts and the 256-slot walk on
+     window edge cases (halvings at every lane of a window, rows ending
+     inside one, symbols past nsym, runs of the symbol in slot 0 broken
+     at lanes 0, 1 and 31 and halving inside, max_sym 129 and 256,
+     uniform symbols) and on the -5 path's longest rows (2 x 318,825
+     TinyModel steps, 2 x 187,545 run-length steps).  Range coder: 16
+     streams x 4,096 steps in two chunks with the state carried, and 2
+     streams whose first holds an 0xFF run of thousands of bytes (longer
+     than the kernel's shared-memory ring of flush records) deferred
+     across the chunk boundary.  Then times the walks of --walk-times alone at main-path
+     shapes.
   4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
      random-walk qualities) and encodes the seq and qual of its first
      10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
@@ -48,8 +52,9 @@ Phases, each printed with its time; any failure exits non-zero:
      launched in it (the encode walk at every preset, the four adaptive
      kernels at -5, each rANS decoder the decode path handed a batch,
      the boundary order-0 walk at -1 and the dense order-1 walk at -3).
-     Prints the shapes of each path's order-1 decode and evolve_128
-     launches (streams, steps, shift, alphabets; contexts, steps).
+     Prints the shapes of each path's order-1 decode and model-evolution
+     launches (streams, steps, shift, alphabets; contexts, steps, the
+     largest count).
      Reports the -5 peak device memory, and encodes a 4 MB prefix at -1
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
      versions), requiring equal archives.
@@ -61,21 +66,23 @@ operations/s (132 SMs x 64 int32 lanes x 1.98 GHz, H100 SXM at 700 W);
 library_ms is null, as no PyTorch call computes an entropy coder's walk.
 
     python3 chip_smoke.py --profile [--decode] [--level=-5[,-3...]] [--out DIR]
+                          [--root DIR]
 
 builds the kernels, makes the same corpus and encodes it once at each
 given preset under cProfile and torch.profiler (with --decode: encodes
 it, then profiles the decode of the archive): writes the two tables to
 DIR/<preset> (default build/profile/) and prints the device's busy time
 and idle share, the kernels' device times, the host functions that take
-the most time and the order-1 decode and evolve_128 launch shapes.
+the most time and the order-1 decode and model-evolution launch shapes.
 
     python3 chip_smoke.py --walk-times [--root DIR]
 
 only times the redesigned walks alone at the main path's shapes (the
-range coder, the rANS encode walk, the order-1 decode walk, evolve_128),
-with cycles a step and their bounds, for the fqzcomp5_tpu_torch of the
-checkout at DIR (default: this one), e.g. an unpacked parent commit, so
-that two versions are compared on one card in one call.
+range coder, the rANS encode walk, the order-1 decode walk, evolve_128,
+the TinyModel walk, evolve_256), with cycles a step and their bounds.
+--root DIR (default: this checkout) times or profiles the
+fqzcomp5_tpu_torch of the checkout at DIR, e.g. an unpacked parent
+commit, so that two versions are compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -122,6 +129,18 @@ WALK_DECODE_O1 = ((6, 1_494_492, 10, 40), (16, 149_925, 10, 40))
 # long context
 WALK_EVOLVE_128 = ((40385, 1024, 96), (41535, 4096, 96), (36, 469_362, 96),
                    (1, 100_000, 96))
+# (C contexts, T steps, nsym) of the TinyModel walk timed by --walk-times:
+# the nine launches of -5's largest batch of seq jobs (logged by
+# LaunchShapes): the read-start k-mer contexts (one context a job with an
+# occurrence a read, 4 with a quarter as many, ...) and the bulk of the
+# contexts at T = 16 to 256
+WALK_TINY = ((2, 318_825, 4), (16, 262_144, 4), (64, 65_536, 4),
+             (256, 16_384, 4), (1_024, 4_096, 4), (4_086, 1_024, 4),
+             (260_281, 256, 4), (3_735_416, 64, 4), (2_294_569, 16, 4))
+# (label, C, T) of the 256-slot walk timed by --walk-times: -5's run-length
+# rows (symbol 255 in runs; its longest launch) and a row of uniform
+# symbols
+WALK_EVOLVE_256 = (("run-length", 2, 187_545), ("uniform", 1, 100_000))
 # integer operations per walked step, counted from each walk's arithmetic
 # (a lower count: index math and loop control are left out); the boundary
 # searches add two per binary-search level
@@ -218,6 +237,129 @@ def _longest_run(data, val: int, np) -> int:
     m = np.concatenate([[0], (data == val).astype(np.int8), [0]])
     d = np.flatnonzero(np.diff(m))
     return int((d[1::2] - d[::2]).max()) if len(d) else 0
+
+
+# ---------------------------------------------------------------------
+# the pass-2 window walks' edge cases (csrc/fqz_evolve.cu), shared with
+# tests/test_torch_evolve_windows.py, which holds the numpy mirrors of the
+# walks against the plain versions on them
+
+K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel: halve when tot passes it
+
+
+def _tiny_lead(rng, nsym, lane, T):
+    """A TinyModel row whose first halving falls at window lane `lane`:
+    tot starts at nsym and rises by one an in-range step, so the halving
+    step is 255 - nsym in-range steps in; out-of-range symbols before
+    them (no bump) move it to the lane.  Random in-range symbols
+    follow."""
+    first = (255 - nsym) % 32
+    lead = (lane - first) % 32
+    row = rng.integers(0, nsym, T)
+    row[:lead] = nsym + 1
+    return row
+
+
+def tiny_window_cases(np):
+    """{name: (symplane (C, T), counts (C,), nsym)} of the TinyModel
+    window walk: a halving at every lane 0-31 of a window (nsym 4 and
+    2), rows ending inside a window, symbols >= nsym, uniform
+    symbols."""
+    rng = np.random.default_rng(21)
+    cases = {}
+    for nsym in (4, 2):
+        sp = np.stack([_tiny_lead(rng, nsym, k, 700) for k in range(32)])
+        cases[f"halving_each_lane_nsym{nsym}"] = (
+            sp, np.full(32, 700), nsym)
+    T = 3 * 32 + 7
+    cases["rows_end_in_window"] = (
+        rng.integers(0, 4, (8, T)),
+        np.array([T, 0, 1, 31, 32, 33, 64 + 17, 2 * 32]), 4)
+    cases["symbols_past_nsym"] = (
+        rng.integers(0, 8, (3, 1500)), np.array([1500, 1499, 290]), 4)
+    cases["symbols_past_nsym2"] = (
+        rng.integers(0, 5, (3, 1500)), np.array([1500, 700, 1]), 2)
+    cases["uniform4"] = (rng.integers(0, 4, (2, 4000)),
+                         np.array([4000, 3333]), 4)
+    cases["uniform2"] = (rng.integers(0, 2, (2, 4000)),
+                         np.array([4000, 2049]), 2)
+    return cases
+
+
+def run255(np, T, breaks=()):
+    """Symbol 255 T times (it climbs to slot 0 in 255 steps and stays),
+    with symbol 7 at the given steps."""
+    row = np.full(T, 255)
+    row[list(breaks)] = 7
+    return row
+
+
+def halvings(np, row, ms, step=16):
+    """Steps of a 256-slot AdaptiveModel row at which the model halves
+    (tot needs each symbol's frequency only, not the slot order)."""
+    f = (np.arange(256) < ms).astype(np.int64)
+    tot, out = int(ms), []
+    for t, s in enumerate(row):
+        f[s] += step
+        tot += step
+        if tot > K_MAX_FREQ:
+            f -= f >> 1
+            tot = int(f.sum())
+            out.append(t)
+    return out
+
+
+def run_window_cases(np):
+    """{name: (symplane (C, T), counts (C,), max_sym (C,))} of the
+    256-slot walk's slot-0 run window: a run of 255 entering slot 0,
+    broken at window lanes 0, 1 and 31; halvings inside runs; max_sym
+    129 and 256; uniform symbols; slot 0 changing hands."""
+    rng = np.random.default_rng(22)
+    cases = {}
+    # once 255 holds slot 0 (from step 255), breaks at window lanes 0, 1
+    # and 31, alone and in pairs
+    brk = [[32 * w + lane for w in range(12, 40, 3)] for lane in (0, 1, 31)]
+    brk.append([32 * 20, 32 * 20 + 1, 32 * 25 + 31, 32 * 26])
+    cases["run255_breaks_at_lanes_0_1_31"] = (
+        np.stack([run255(np, 2000, b) for b in brk]), np.full(4, 2000),
+        np.full(4, 256))
+    # halvings inside runs.  With STEP 16 tot is max_sym + 16 t up to
+    # the first halving whatever the data, so max_sym sets the halvings'
+    # window lanes (first 14-30, second 6-30 for max_sym 256-0).  The
+    # closed form stops before a halving, so runs that end on their
+    # halving step: cut by a break right after it, and a row whose count
+    # ends on it.
+    ms = np.array([256, 200, 129, 64, 0, 256, 256])
+    rows = [run255(np, 6200) for _ in ms]
+    first = halvings(np, rows[5], 256)[0]
+    rows[5][first + 1] = 7
+    counts = np.full(len(ms), 6200)
+    counts[6] = first + 1
+    cases["halving_inside_run"] = (np.stack(rows), counts, ms)
+    z = np.minimum(rng.zipf(1.3, (3, 3000)) - 1, 255)
+    cases["max_sym129"] = (np.minimum(z, 128), np.array([3000, 2500, 77]),
+                           np.full(3, 129))
+    cases["max_sym256"] = (z, np.array([3000, 2999, 33]), np.full(3, 256))
+    cases["uniform256"] = (rng.integers(0, 256, (2, 3000)),
+                           np.array([3000, 1000]), np.full(2, 256))
+    # slot 0's own symbol changes while runs go on (0 leads, 255 takes
+    # over), rows ending inside a window
+    mix = np.where(rng.random((2, 3000)) < 0.9,
+                   np.where(np.arange(3000) < 1500, 0, 255), 9)
+    cases["slot0_changes_rows_end_in_window"] = (
+        mix, np.array([3000 - 13, 1500 + 31]), np.full(2, 256))
+    return cases
+
+
+def _cu_const(name: str) -> int:
+    """An integer constexpr of csrc/fqz_evolve.cu, e.g. the context count
+    from which a layout is picked."""
+    import re
+
+    with open(os.path.join(ROOT, "fqzcomp5_tpu_torch", "csrc",
+                           "fqz_evolve.cu")) as fp:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             fp.read()).group(1))
 
 
 def _time(fn, reps: int):
@@ -385,8 +527,7 @@ def kernels_vs_plain(np, torch, dev):
 
 def adaptive_kernels_vs_plain(np, torch, dev):
     """The model-evolution and range-coder kernels against their plain
-    versions (zero tolerance), then the evolve-256 and range-coder
-    kernels alone at main-path shapes."""
+    versions (zero tolerance)."""
     from fqzcomp5_tpu_torch.ops import (fqz_model_torch, model_cuda,
                                         rc_cuda, rc_torch)
 
@@ -425,6 +566,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         record(name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms, p_ms,
                steps, steps * 9 + _nbytes(ct, ms))
     evolve_edge_cases(np, torch, dev, rng)
+    window_edge_cases(np, torch, dev)
     for nsym in (4, 2):
         C, T = 1 << 20, 256
         counts = put(rng.integers(0, T + 1, C).astype(np.int32))
@@ -508,15 +650,6 @@ def adaptive_kernels_vs_plain(np, torch, dev):
     log(f"  rc_encode_walk long-run case: a run of {run} 0xFF bytes, "
         f"{ffs[0][0]} of them deferred across the chunk boundary")
 
-    # the kernel alone at a main-path shape
-    sp = put(np.minimum(rng.zipf(1.2, (4, 450_000)) - 1, 255)
-             .astype(np.uint8))
-    ct = put(np.full(4, 450_000, np.int32))
-    ms = put(np.full(4, 256, np.int32))
-    k_ms, _ = _time(lambda: model_cuda.evolve_256(sp, ct, ms), 1)
-    log(f"  evolve_256 main-path shape C=4 T=450000: {k_ms:.3f} ms "
-        f"({4 * 450_000 / k_ms / 1e3:.3f} M steps/s)")
-    del sp
     for name, rows in res.items():
         bad = [r for r in rows if r[1] != 0]
         if bad:
@@ -604,6 +737,80 @@ def evolve_edge_cases(np, torch, dev, rng) -> None:
               fqz_model_torch.evolve_ref(*args, 128))
 
 
+# the main path's longest pass-2 rows at -5 (100 MB blocks of 150 bp
+# reads, a SEQ10 and a SEQ12B job a batch; logged by LaunchShapes): the
+# TinyModel context every read starts in (one occurrence a read), and the
+# run-length model of the base class (runs cross records, cut into
+# chunks of 255)
+LONG_TINY_T = 318_825
+LONG_RUN_T = 187_545
+
+
+def window_edge_cases(np, torch, dev) -> None:
+    """The TinyModel walks and the 256-slot walk against their plain
+    versions, zero tolerance, on the cases of tiny_window_cases and
+    run_window_cases: each case alone (the warp layouts), the TinyModel
+    cases of each nsym tiled past csrc/fqz_evolve.cu's kTinyThreadMinC
+    contexts (the thread layout), and the main path's longest rows, C = 2
+    x LONG_TINY_T random bases and C = 2 x LONG_RUN_T of symbol 255 (the
+    plain versions of these two on the CPU, where a step costs less than
+    a string of kernel launches)."""
+    from fqzcomp5_tpu_torch.ops import fqz_model_torch, model_cuda
+
+    def put(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    tiled = {4: [], 2: []}
+    for name, (sp, counts, nsym) in tiny_window_cases(np).items():
+        args = put(sp.astype(np.uint8), counts.astype(np.int32))
+        check("tiny_evolve", f"{name} C={sp.shape[0]}",
+              model_cuda.tiny_evolve(*args, nsym),
+              fqz_model_torch.tiny_evolve_ref(*args, nsym))
+        tiled[nsym].append((sp, counts))
+    rows = _cu_const("kTinyThreadMinC")
+    for nsym, parts in tiled.items():
+        T = max(sp.shape[1] for sp, _ in parts)
+        sp = np.concatenate([np.pad(a, ((0, 0), (0, T - a.shape[1])))
+                             for a, _ in parts])
+        ct = np.concatenate([c for _, c in parts])
+        reps = -(-rows // len(ct))
+        args = put(np.tile(sp, (reps, 1)).astype(np.uint8),
+                   np.tile(ct, reps).astype(np.int32))
+        check("tiny_evolve", f"nsym={nsym} cases tiled C={len(ct) * reps}",
+              model_cuda.tiny_evolve(*args, nsym),
+              fqz_model_torch.tiny_evolve_ref(*args, nsym))
+    for name, (sp, counts, ms) in run_window_cases(np).items():
+        args = put(sp.astype(np.uint8), counts.astype(np.int32),
+                   ms.astype(np.int32))
+        check("evolve_256", f"{name} C={sp.shape[0]}",
+              model_cuda.evolve_256(*args),
+              fqz_model_torch.evolve_ref(*args, 256))
+    rng = np.random.default_rng(SEED + 5)
+    sp = rng.integers(0, 4, (2, LONG_TINY_T)).astype(np.uint8)
+    ct = np.array([LONG_TINY_T, LONG_TINY_T - 1000], np.int32)
+    t1 = time.monotonic()
+    want = fqz_model_torch.tiny_evolve_ref(*(torch.from_numpy(a) for a in
+                                             (sp, ct)), 4)
+    cpu_s = time.monotonic() - t1
+    check("tiny_evolve", f"long row C=2 T={LONG_TINY_T} (plain on the CPU, "
+          f"{cpu_s:.1f} s)", [g.cpu() for g in
+                              model_cuda.tiny_evolve(*put(sp, ct), 4)], want)
+    # the run-length row: 255-chunks, a short chunk where a run ends
+    sp = np.full((2, LONG_RUN_T), 255, np.uint8)
+    sp[0, rng.integers(300, LONG_RUN_T, 20)] = rng.integers(0, 255, 20)
+    ct = np.array([LONG_RUN_T, LONG_RUN_T - 77], np.int32)
+    ms = np.full(2, 256, np.int32)
+    t1 = time.monotonic()
+    want = fqz_model_torch.evolve_ref(*(torch.from_numpy(a) for a in
+                                        (sp, ct, ms)), 256)
+    cpu_s = time.monotonic() - t1
+    check("evolve_256", f"run-length row C=2 T={LONG_RUN_T} (plain on the "
+          f"CPU, {cpu_s:.1f} s)", [g.cpu() for g in
+                                   model_cuda.evolve_256(*put(sp, ct, ms))],
+          want)
+
+
 def decode_o1_edge_cases(np, torch, dev) -> None:
     """decode_o1 against decode_o1_ref where csrc/rans_decode.cu changes
     route: alphabets (byte 0 counted) just under and just over the
@@ -644,9 +851,12 @@ def walk_times(np, torch, dev) -> None:
     launch shape B = 2 x T = 2^22 (CHUNK_T), the rANS encode walk at B = 4
     x T = 2^20 order-0 (uint8 plane) and order-1 (flat int32 plane) at
     shift 12, the order-1 decode walk at the -3 and -1 launch shapes
-    (WALK_DECODE_O1), and the 128-slot model evolution at -5's bucket
-    shapes (WALK_EVOLVE_128).  Uses only the wrappers' interfaces, so it
-    times any version of the package (--walk-times --root DIR)."""
+    (WALK_DECODE_O1), the 128-slot model evolution at -5's bucket
+    shapes (WALK_EVOLVE_128), the TinyModel walk at -5's bucket shapes
+    (WALK_TINY) and the 256-slot walk on -5's run-length rows and on
+    uniform symbols (WALK_EVOLVE_256).  Uses only the wrappers'
+    interfaces, so it times any version of the package (--walk-times
+    --root DIR)."""
     from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda, rans_cuda_dec,
                                         rans_torch, rc_cuda, rc_torch)
 
@@ -668,6 +878,14 @@ def walk_times(np, torch, dev) -> None:
         show("decode_o1", f"B={B} T={T} shift{shift} A={A}", k_ms, T,
              B * T * 32, _nbytes(*args[:4], *out))
         del args, sym, out
+    def show_evolve(name, label, ms, counts):
+        C, steps, T = len(counts), int(counts.sum()), int(counts.max())
+        b_ms, by = _bound(steps * 9 + 8 * C, OPS_PER_STEP[name] * steps)
+        log(f"  walk {name} {label}: {ms:.3f} ms ({steps / ms / 1e3:.3f} M "
+            f"steps/s; {ms * 1e-3 * CLOCK_HZ * SMS / steps:.1f} SM-cycles a "
+            f"step, {ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step of the "
+            f"longest context)  bound {b_ms:.4f} ms ({by})")
+
     rng = np.random.default_rng(SEED)
     for C, T, M in WALK_EVOLVE_128:
         counts = np.full(C, T, np.int32) if C == 1 else \
@@ -676,14 +894,32 @@ def walk_times(np, torch, dev) -> None:
         args = [torch.from_numpy(a).to(dev) for a in
                 (sp, counts, np.full(C, M, np.int32))]
         k_ms, _ = _time(lambda: model_cuda.evolve_128(*args), 3)
-        steps = int(counts.sum())
-        b_ms, by = _bound(steps * 9 + 8 * C, OPS_PER_STEP["evolve_128"]
-                          * steps)
-        log(f"  walk evolve_128 C={C} T={T} max_sym={M}: {k_ms:.3f} ms "
-            f"({steps / k_ms / 1e3:.3f} M steps/s; "
-            f"{k_ms * 1e-3 * CLOCK_HZ * SMS / steps:.1f} SM-cycles a step, "
-            f"{k_ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step of the longest "
-            f"context)  bound {b_ms:.4f} ms ({by})")
+        show_evolve("evolve_128", f"C={C} T={T} max_sym={M}", k_ms, counts)
+    for C, T, nsym in WALK_TINY:
+        # a count bucket holds the counts in (T/4, T], the first 1..16
+        counts = np.full(C, T, np.int32) if C <= 2 else \
+            rng.integers(T // 4 + 1 if T > 16 else 1, T + 1, C).astype(
+                np.int32)
+        counts[0] = T
+        sp = torch.randint(0, nsym, (C, T), device=dev, dtype=torch.uint8,
+                           generator=g)
+        ct = torch.from_numpy(counts).to(dev)
+        k_ms, _ = _time(lambda: model_cuda.tiny_evolve(sp, ct, nsym), 3)
+        show_evolve("tiny_evolve", f"C={C} T={T} nsym={nsym}", k_ms, counts)
+        del sp
+    for label, C, T in WALK_EVOLVE_256:
+        counts = np.full(C, T, np.int32)
+        if label == "uniform":
+            sp = rng.integers(0, 256, (C, T)).astype(np.uint8)
+        else:
+            # a block's bases are one class run, cut into 255-chunks
+            # and a last short one
+            sp = np.full((C, T), 255, np.uint8)
+            sp[:, -1] = 17
+        args = [torch.from_numpy(a).to(dev) for a in
+                (sp, counts, np.full(C, 256, np.int32))]
+        k_ms, _ = _time(lambda: model_cuda.evolve_256(*args), 3)
+        show_evolve("evolve_256", f"{label} C={C} T={T}", k_ms, counts)
     for B, T in ((12, 1 << 24), (2, 1 << 22)):
         tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32,
                             generator=g)
@@ -1097,27 +1333,38 @@ def card_vs_cpu(src: str, work: str, lvl: str, mb: int) -> None:
 
 class LaunchShapes:
     """Inside a with block, records the shape of every s3-LUT rANS decode
-    and 128-slot evolve launch (through a wrapper around the package's
+    and model-evolution launch (through a wrapper around the package's
     function, which it calls unchanged) and logs them at the end with
     their bounds: B, T, word-row width, lengths (and shift and each
-    stream's alphabet at order 1) of the decodes; C, T and steps of the
-    evolves."""
+    stream's alphabet at order 1) of the decodes; for each evolve walk
+    (evolve_128, evolve_256, tiny_evolve) C, T, the largest count (the
+    longest chain) and the steps of every launch."""
 
     def __init__(self, what: str):
         self.what = what
         self.seen = []
 
     def __enter__(self):
+        import torch
         from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_dec
 
         self.saved = ((rans_cuda_dec, "decode_o0", rans_cuda_dec.decode_o0),
                       (rans_cuda_dec, "decode_o1", rans_cuda_dec.decode_o1),
-                      (model_cuda, "evolve_128", model_cuda.evolve_128))
+                      (model_cuda, "evolve_128", model_cuda.evolve_128),
+                      (model_cuda, "evolve_256", model_cuda.evolve_256),
+                      (model_cuda, "tiny_evolve", model_cuda.tiny_evolve))
         for mod, name, fn in self.saved:
             def shim(*a, _fn=fn, _name=name, **kw):
-                # shapes, and the small tensors read afterwards
-                self.seen.append((_name, a[0].shape, a[1:] if
-                                  _name.startswith("decode") else a[1]))
+                # shapes, and the small tensors read afterwards; of an
+                # evolve only the largest count and the steps, read on
+                # the host (its counts kept alive on the card until the
+                # end would count in the path's peak device memory)
+                if _name.startswith("decode"):
+                    seen = a[1:]
+                else:
+                    ct = a[1].cpu().to(torch.int64).clamp(0, a[0].shape[1])
+                    seen = (int(ct.max()), int(ct.sum()))
+                self.seen.append((_name, a[0].shape, seen))
                 return _fn(*a, **kw)
             # the wrapper counts its launches on the module's name, now
             # the shim's: carried over, and back at the end
@@ -1131,8 +1378,7 @@ class LaunchShapes:
             setattr(mod, name, fn)
         import torch
 
-        evolves = []
-        evolve_steps = evolve_bytes = 0
+        evolves = {}   # walk -> (shapes, steps, bytes)
         for name, shape, a in self.seen:
             if name.startswith("decode"):
                 R0, s3, t_real, T = a[:4]
@@ -1155,16 +1401,18 @@ class LaunchShapes:
                     f"{alph} t_real={t_real.tolist()} bound {b_ms:.4f} ms "
                     f"({by})")
             else:
-                steps = int(a.sum())
-                evolve_steps += steps
-                evolve_bytes += steps * 9 + 8 * shape[0]
-                evolves.append(f"{shape[0]}x{shape[1]}({steps})")
-        if evolves:
-            b_ms, by = _bound(evolve_bytes,
-                              OPS_PER_STEP["evolve_128"] * evolve_steps)
-            log(f"launch shapes in {self.what}: evolve_128 CxT(steps) "
-                f"{' '.join(evolves)}; bound of them all {b_ms:.4f} ms "
-                f"({by})")
+                largest, steps = a
+                shapes, n, nb = evolves.get(name, ([], 0, 0))
+                # symbols read, (cf, tot) written a step; counts (and
+                # max_sym) read a context
+                evolves[name] = (
+                    shapes + [f"{shape[0]}x{shape[1]}({largest},{steps})"],
+                    n + steps, nb + steps * 9 + 8 * shape[0])
+        for name, (shapes, n, nb) in evolves.items():
+            b_ms, by = _bound(nb, OPS_PER_STEP[name] * n)
+            log(f"launch shapes in {self.what}: {name} CxT(largest count,"
+                f"steps) {' '.join(shapes)}; {n} steps, bound of them all "
+                f"{b_ms:.4f} ms ({by})")
         self.seen = []
         return False
 
@@ -1228,9 +1476,14 @@ def profile_run(src: str, work: str, lvl: str, out_dir: str,
     for e in dev:
         n, us = per.get(e.name, (0, 0.0))
         per[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    log("device time by kernel or copy (s, launches):")
-    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:15]:
-        log(f"  {us / 1e6:10.3f}  {n:6d}  {name[:90]}")
+    log("device time by kernel or copy (s, launches; the 15 longest, then "
+        "the port's other kernels):")
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
+    for k, (name, (n, us)) in enumerate(ranked):
+        # the port's kernels live in anonymous namespaces of csrc/*.cu
+        if k < 15 or name.removeprefix("void ").startswith(
+                "(anonymous namespace)::"):
+            log(f"  {us / 1e6:10.3f}  {n:6d}  {name[:90]}")
     with open(os.path.join(out_dir, "torch_profile.txt"), "w") as fp:
         fp.write(tp.key_averages().table(sort_by="self_cuda_time_total",
                                          row_limit=40))
@@ -1280,8 +1533,8 @@ def main() -> int:
                     help="only time the redesigned walks at the main "
                     "path's shapes")
     ap.add_argument("--root", default=ROOT,
-                    help="with --walk-times: the checkout whose "
-                    "fqzcomp5_tpu_torch is timed")
+                    help="with --walk-times or --profile: the checkout "
+                    "whose fqzcomp5_tpu_torch is timed")
     opts = ap.parse_args()
 
     t0 = time.monotonic()
@@ -1301,17 +1554,18 @@ def main() -> int:
     log(smi)
     phase("device", t0)
 
-    if opts.walk_times:
+    if opts.walk_times or opts.profile:
         sys.path.insert(0, os.path.abspath(opts.root))
         from fqzcomp5_tpu_torch.ops import _build
+        if opts.profile:
+            log(f"profile of {os.path.dirname(_build.CSRC)}")
+            return profile_main(np, torch, opts.level, opts.out, opts.decode)
         _build.lib()
         log(f"walk times of {os.path.dirname(_build.CSRC)} (nvcc "
             f"{_build.build_seconds:.3f} s)")
         walk_times(np, torch, torch.device("cuda"))
         return 0
     sys.path.insert(0, ROOT)
-    if opts.profile:
-        return profile_main(np, torch, opts.level, opts.out, opts.decode)
 
     t0 = time.monotonic()
     from fqzcomp5_tpu_torch import engine_cuda

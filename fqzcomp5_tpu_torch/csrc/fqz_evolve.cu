@@ -29,20 +29,50 @@
 //   round, instead of 32 lanes' instructions; the short count buckets,
 //   with many contexts, were issue-bound in the warp layout.
 //
-// tiny_kernel<NSYM> runs fqz_model_jax.tiny_evolve (a lax.scan, no Pallas
-// kernel): the SEQ codec's TinyModel<4>/<2> with STEP 1, halving when the
-// pre-bump tot reaches 255.  One thread owns one context, its NSYM
-// frequencies in registers.
+//   At CAP = 256 the warp layout also walks runs of the symbol in slot 0
+//   in closed form: slot 0 has no slot before it, so it never swaps and
+//   its cum is 0, and until the bump that takes tot past kMaxFreq a run
+//   of r such steps emits f0 + STEP*i and tot0 + STEP*i and moves every
+//   other slot's cu by STEP*r.  One ballot a window marks the lanes
+//   holding that symbol, and the window's leading run of them is emitted
+//   so; the rest of the window walks step by step.  The SEQ codec's
+//   run-length models are such runs of 255 (whole windows but for one
+//   halving every two thousand steps or so), and a window of them is far
+//   shorter than a load from device memory, so the symbols come
+//   kRunAhead windows ahead through shared memory.
+//
+// The TinyModel walks run fqz_model_jax.tiny_evolve (a lax.scan, no
+// Pallas kernel): the SEQ codec's TinyModel<4>/<2> with STEP 1, halving
+// when the pre-bump tot reaches 255.  Two layouts, picked per launch
+// from C before the launch:
+// - tiny_warp_kernel (C < kTinyThreadMinC): one warp per context, 32
+//   steps a round.  Lane i holds the round's i-th symbol; a ballot per
+//   symbol and popc of the lanes before each lane give every lane its
+//   (cum, f, tot) from the round's starting frequencies at once.  tot
+//   rises by at most 1 a step and a halving leaves it at 128 or more, so
+//   at most one halving (at the first lane whose pre-bump tot reaches
+//   255) falls in a round; lanes after it start from the halved
+//   frequencies.  Only the NSYM frequencies carry from round to round,
+//   and symbols are loaded kTinyAhead rounds ahead.  The SEQ codec's
+//   first k-mer context of every read, one context with an occurrence
+//   per read, is one such long walk.
+// - tiny_thread_kernel (C >= kTinyThreadMinC): one thread per context,
+//   the reference's step, the NSYM frequencies in registers; symbols in
+//   and (cf, tot) out are staged in shared memory a row segment at a
+//   time, as in evolve_thread_kernel, so every global access is a run of
+//   one row's consecutive cells.
 //
 // What bounds them on the H100: the serial chain of each context's walk.
 // The k-mer and qual models have millions of short contexts, so many
 // warps or threads run and the card is filled; a few models (SEQ
-// run-length, fqz length bytes) have one context with hundreds of
-// thousands of occurrences, and that walk is latency-bound whatever the
-// layout.  Memory traffic is 1 byte in and 8 out per occurrence; the warp
-// kernel loads 32 symbols and stores 32 results at a time, coalesced; the
-// thread kernel stages 32 steps of its 32 contexts in shared memory and
-// moves them one row at a time, coalesced too.
+// run-length and read-start k-mer contexts, fqz length bytes) have one
+// context with hundreds of thousands of occurrences, and that walk is
+// latency-bound whatever the layout: the TinyModel round and the slot-0
+// run window put 32 steps on one link of its chain.  Memory traffic is 1
+// byte in and 8 out per occurrence; the warp kernels load 32 symbols and
+// store 32 results at a time, coalesced; the thread kernels stage 32
+// steps of their 32 contexts in shared memory and move them one row at a
+// time, coalesced too.
 //
 // Layout: symbol plane (C, T) uint8 row-major, counts (C,), and for the
 // AdaptiveModel max_sym (C,); outputs cf, tot (C, T), zero past counts.
@@ -56,10 +86,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kMaxFreq = (1u << 16) - 17;
 constexpr uint32_t kTinyMax = 255;
 constexpr int kWarpsPerBlock = 4;
-constexpr int kTinyThreads = 128;
 // evolve_128 takes one thread a context from this many contexts up
 constexpr int kThreadLayoutMinC = 1024;
 constexpr int kScan = 8;   // slots a scan round of the thread layout reads
+// TinyModel walks take one thread a context from this many contexts up:
+// at -5's count buckets (T = 16 to 1,024) each layout wins on its side
+constexpr int kTinyThreadMinC = 65536;
+constexpr int kTinyAhead = 16;   // rounds tiny_warp_kernel loads ahead
+constexpr int kRunAhead = 16;    // windows evolve_kernel<256> loads ahead
 
 template <int K>
 __device__ __forceinline__ uint32_t pick(const uint32_t (&a)[K], int k) {
@@ -84,7 +118,11 @@ __device__ __forceinline__ void place(uint32_t (&a)[K], int k, uint32_t v) {
 // changes two adjacent entries, and only a halving sums the prefixes anew
 // (one warp scan).  On a step's chain: the ballot, and the shuffle of a
 // swap across a lane boundary; the (cum, f) shuffle to the emitting lane
-// is off it.
+// is off it.  At CAP = 256 a window's leading run of the symbol in slot 0
+// is emitted in closed form before the step-by-step walk, and the
+// window's symbols come from a per-warp ring in shared memory refilled
+// kRunAhead windows ahead (a window of closed-form steps is far shorter
+// than a load from device memory).
 template <int CAP>
 __global__ void evolve_kernel(const uint8_t* __restrict__ plane,
                               const int32_t* __restrict__ counts,
@@ -93,6 +131,8 @@ __global__ void evolve_kernel(const uint8_t* __restrict__ plane,
                               uint32_t* __restrict__ out_cf,
                               uint32_t* __restrict__ out_tot) {
     constexpr int K = CAP / 32;
+    constexpr int R = CAP == 256 ? kRunAhead : 1;   // ring windows
+    __shared__ uint32_t ring[kWarpsPerBlock][R][32];
     const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (row >= C) return;  // the whole warp leaves together
@@ -108,12 +148,66 @@ __global__ void evolve_kernel(const uint8_t* __restrict__ plane,
     uint32_t tot = ms;
     const int n = counts[row];
     const long long base = (long long)row * T;
+    // CAP 256: this lane's column of the ring (windows w*R .. w*R+R-1)
+    // and, in registers, its symbols of the R windows after them
+    uint32_t* rg = &ring[threadIdx.x >> 5][0][lane];
+    uint32_t ahead[R];
+    if constexpr (CAP == 256) {
+#pragma unroll
+        for (int d = 0; d < R; ++d) {
+            const int t = 32 * d + lane;
+            rg[32 * d] = t < n ? plane[base + t] : 0u;
+            ahead[d] = t + 32 * R < n ? plane[base + t + 32 * R] : 0u;
+        }
+    }
 
     for (int t0 = 0; t0 < T; t0 += 32) {
         const int m = min(32, n - t0);   // walked steps in this batch
-        const int mine = lane < m ? plane[base + t0 + lane] : 0;
+        int mine;
+        if constexpr (CAP == 256) {
+            const int d = (t0 >> 5) % R;
+            mine = (int)rg[32 * d];
+            if (d == R - 1) {
+                // every window in the ring is read: refill it from the
+                // loads in flight and start those R windows further on
+#pragma unroll
+                for (int e = 0; e < R; ++e) {
+                    const int t = t0 + 32 * (R + 1 + e) + lane;
+                    rg[32 * e] = ahead[e];
+                    ahead[e] = t < n ? plane[base + t] : 0u;
+                }
+            }
+        } else {
+            mine = lane < m ? plane[base + t0 + lane] : 0;
+        }
         uint32_t my_cf = 0, my_tot = 0;
-        for (int i = 0; i < m; ++i) {
+        int i = 0;
+        if constexpr (CAP == 256) {
+            // the window's leading run of the symbol in slot 0, cut
+            // before the bump that would take tot past kMaxFreq (that
+            // step halves): closed form
+            const uint32_t s0 = __shfl_sync(kFull, sy[0], 0);
+            const uint32_t run =
+                __ballot_sync(kFull, lane < m && (uint32_t)mine == s0);
+            int r = __clz(__brev(~run));   // trailing ones: 32 if all
+            if (tot + step * r > kMaxFreq)
+                r = (kMaxFreq - tot) / step;
+            if (r > 0) {
+                const uint32_t f0 = __shfl_sync(kFull, fr[0], 0);
+                if (lane < r) {
+                    my_cf = f0 + step * lane;   // cum 0: slot 0
+                    my_tot = tot + step * lane;
+                }
+                const uint32_t add = step * r;
+#pragma unroll
+                for (int k = 0; k < K; ++k)
+                    if (lane > 0 || k > 0) cu[k] += add;
+                if (lane == 0) fr[0] += add;
+                tot += add;
+                i = r;
+            }
+        }
+        for (; i < m; ++i) {
             const uint32_t s = __shfl_sync(kFull, mine, i);
             int kl = -1;
 #pragma unroll
@@ -299,39 +393,151 @@ evolve_thread_kernel(const uint8_t* __restrict__ plane,
     }
 }
 
+// One warp per TinyModel context, 32 steps a round (see the top of the
+// file).  Every lane keeps the same copy of the NSYM frequencies and tot
+// (their sum) at the round's start.
 template <int NSYM>
-__global__ void tiny_kernel(const uint8_t* __restrict__ plane,
-                            const int32_t* __restrict__ counts, int C, int T,
-                            uint32_t* __restrict__ out_cf,
-                            uint32_t* __restrict__ out_tot) {
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= C) return;
+__global__ void tiny_warp_kernel(const uint8_t* __restrict__ plane,
+                                 const int32_t* __restrict__ counts, int C,
+                                 int T, uint32_t* __restrict__ out_cf,
+                                 uint32_t* __restrict__ out_tot) {
+    const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= C) return;  // the whole warp leaves together
+    const uint32_t lt = (1u << lane) - 1u;   // the lanes before this one
+    const int n = min(counts[row], T);
+    const long long base = (long long)row * T;
     uint32_t fr[NSYM];
 #pragma unroll
     for (int j = 0; j < NSYM; ++j) fr[j] = 1;
-    const int n = counts[row];
-    const long long base = (long long)row * T;
-    for (int t = 0; t < T; ++t) {
-        uint32_t cf = 0, tt = 0;
-        if (t < n) {
-            const uint32_t s = plane[base + t];
-            uint32_t tot = 0, cum = 0, f = 0;
+    uint32_t tot = NSYM;
+    uint32_t q[kTinyAhead];   // this lane's symbol of the next rounds
+#pragma unroll
+    for (int d = 0; d < kTinyAhead; ++d) {
+        const int t = 32 * d + lane;
+        q[d] = t < n ? plane[base + t] : 0u;
+    }
+    for (int t0 = 0; t0 < T; t0 += 32 * kTinyAhead) {
+#pragma unroll
+        for (int d = 0; d < kTinyAhead; ++d) {
+            const int tw = t0 + 32 * d;
+            if (tw >= T) break;
+            const uint32_t s = q[d];
+            const int tn = tw + 32 * kTinyAhead + lane;
+            q[d] = tn < n ? plane[base + tn] : 0u;
+            const int m = n - tw;   // steps left in the row
+            const uint32_t vm = m >= 32 ? kFull : m > 0 ? (1u << m) - 1u : 0u;
+            uint32_t mk[NSYM], inr = 0;
 #pragma unroll
             for (int j = 0; j < NSYM; ++j) {
+                mk[j] = __ballot_sync(kFull, s == (uint32_t)j) & vm;
+                inr |= mk[j];
+            }
+            // the halving lane h: the first walked lane whose pre-bump
+            // tot, tot + the bumps before it, reaches kTinyMax
+            const uint32_t hm =
+                __ballot_sync(kFull, tot + __popc(inr & lt) >= kTinyMax) & vm;
+            const int h = __ffs(hm) - 1;   // -1: no halving this round
+            const uint32_t le = h < 0 ? 0u : h == 31 ? kFull : (2u << h) - 1u;
+            // g: the frequencies after lane h's bump and halving; lanes
+            // after h count their bumps from there
+            uint32_t g[NSYM], cle[NSYM];
+#pragma unroll
+            for (int j = 0; j < NSYM; ++j) {
+                cle[j] = __popc(mk[j] & le);
+                const uint32_t b = fr[j] + cle[j];
+                g[j] = b - (b >> 1);
+            }
+            const bool after = h >= 0 && lane > h;
+            uint32_t cum = 0, f = 0, tt = 0;
+#pragma unroll
+            for (int j = 0; j < NSYM; ++j) {
+                const uint32_t c = __popc(mk[j] & lt);
+                const uint32_t fj = after ? g[j] + c - cle[j] : fr[j] + c;
+                if ((uint32_t)j < s) cum += fj;   // all of them: s >= NSYM
+                if ((uint32_t)j == s) f = fj;
+                tt += fj;
+            }
+            if (tw + lane < T) {
+                const bool walked = lane < m;
+                out_cf[base + tw + lane] = walked ? cum << 16 | f : 0u;
+                out_tot[base + tw + lane] = walked ? tt : 0u;
+            }
+            tot = 0;
+#pragma unroll
+            for (int j = 0; j < NSYM; ++j) {
+                fr[j] = h >= 0 ? g[j] + __popc(mk[j]) - cle[j]
+                               : fr[j] + __popc(mk[j]);
                 tot += fr[j];
-                if (j < (int)s) cum += fr[j];
-                if (j == (int)s) f = fr[j];
             }
-#pragma unroll
-            for (int j = 0; j < NSYM; ++j) {
-                if (j == (int)s) fr[j] += 1;
-                if (tot >= kTinyMax) fr[j] -= fr[j] >> 1;
-            }
-            cf = (cum << 16) | f;
-            tt = tot;
         }
-        out_cf[base + t] = cf;
-        out_tot[base + t] = tt;
+    }
+}
+
+// One thread per TinyModel context, for count buckets of many contexts:
+// the reference's step with the frequencies in registers; the warp walks
+// its 32 contexts 32 steps at a time, their symbols in and (cf, tot) out
+// through shared memory one context row at a time.  A segment's 32 rows
+// of symbols are loaded into registers a segment ahead, so their loads
+// are in flight together while the segment before is walked.
+template <int NSYM>
+__global__ void __launch_bounds__(32)
+tiny_thread_kernel(const uint8_t* __restrict__ plane,
+                   const int32_t* __restrict__ counts, int C, int T,
+                   uint32_t* __restrict__ out_cf,
+                   uint32_t* __restrict__ out_tot) {
+    __shared__ uint32_t cfb[32][33];   // [step][context]: symbol, then cf
+    __shared__ uint32_t ttb[32][33];
+    const int lane = threadIdx.x;
+    const int row0 = blockIdx.x * 32;
+    const int rows = min(32, C - row0);
+    const int n = lane < rows ? min(counts[row0 + lane], T) : 0;
+    const uint8_t* col = plane + (long long)row0 * T + lane;
+    uint32_t fr[NSYM];
+#pragma unroll
+    for (int j = 0; j < NSYM; ++j) fr[j] = 1;
+    uint32_t v[32];   // row r's symbol at step t0 + lane of the next segment
+#pragma unroll
+    for (int r = 0; r < 32; ++r)
+        v[r] = r < rows && lane < T ? col[(long long)r * T] : 0u;
+    for (int t0 = 0; t0 < T; t0 += 32) {
+        const int w = min(32, T - t0);
+        const int tn = t0 + 32;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+            cfb[lane][r] = v[r];
+            v[r] = r < rows && tn + lane < T ? col[(long long)r * T + tn] : 0u;
+        }
+        __syncwarp();
+        for (int i = 0; i < w; ++i) {
+            uint32_t cf = 0, tt = 0;
+            if (t0 + i < n) {
+                const uint32_t s = cfb[i][lane];
+                uint32_t cum = 0, f = 0;
+#pragma unroll
+                for (int j = 0; j < NSYM; ++j) {
+                    tt += fr[j];
+                    if ((uint32_t)j < s) cum += fr[j];
+                    if ((uint32_t)j == s) f = fr[j];
+                }
+#pragma unroll
+                for (int j = 0; j < NSYM; ++j) {
+                    if ((uint32_t)j == s) fr[j] += 1;
+                    if (tt >= kTinyMax) fr[j] -= fr[j] >> 1;
+                }
+                cf = cum << 16 | f;
+            }
+            cfb[i][lane] = cf;   // the symbol is read: its cell takes cf
+            ttb[i][lane] = tt;
+        }
+        __syncwarp();
+        for (int r = 0; r < rows; ++r)
+            if (lane < w) {
+                const long long o = (long long)(row0 + r) * T + t0 + lane;
+                out_cf[o] = cfb[lane][r];
+                out_tot[o] = ttb[lane][r];
+            }
+        __syncwarp();
     }
 }
 
@@ -364,16 +570,25 @@ extern "C" int fqz5_tiny_evolve(const uint8_t* plane, const int32_t* counts,
                                 int C, int T, int nsym, uint32_t* out_cf,
                                 uint32_t* out_tot, void* stream) {
     if (C <= 0 || T <= 0) return 0;
-    const dim3 grid((C + kTinyThreads - 1) / kTinyThreads);
+    if (nsym != 2 && nsym != 4) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (nsym == 4) {
-        tiny_kernel<4><<<grid, kTinyThreads, 0, s>>>(plane, counts, C, T,
-                                                     out_cf, out_tot);
-    } else if (nsym == 2) {
-        tiny_kernel<2><<<grid, kTinyThreads, 0, s>>>(plane, counts, C, T,
-                                                     out_cf, out_tot);
+    if (C >= kTinyThreadMinC) {
+        const dim3 grid((C + 31) / 32);
+        if (nsym == 4)
+            tiny_thread_kernel<4><<<grid, 32, 0, s>>>(plane, counts, C, T,
+                                                      out_cf, out_tot);
+        else
+            tiny_thread_kernel<2><<<grid, 32, 0, s>>>(plane, counts, C, T,
+                                                      out_cf, out_tot);
     } else {
-        return (int)cudaErrorInvalidValue;
+        const dim3 grid((C + kWarpsPerBlock - 1) / kWarpsPerBlock);
+        const dim3 block(32 * kWarpsPerBlock);
+        if (nsym == 4)
+            tiny_warp_kernel<4><<<grid, block, 0, s>>>(plane, counts, C, T,
+                                                       out_cf, out_tot);
+        else
+            tiny_warp_kernel<2><<<grid, block, 0, s>>>(plane, counts, C, T,
+                                                       out_cf, out_tot);
     }
     return (int)cudaGetLastError();
 }

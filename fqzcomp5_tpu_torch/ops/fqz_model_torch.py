@@ -111,6 +111,13 @@ def evolve_prefix_mirror(symplane, counts, max_sym, cap: int,
     the owner's slot and to cu of every later slot, a halving sums the
     prefixes anew, a swap inside a lane rewrites two entries, and a swap
     across a lane boundary goes through the one value each side sends.
+
+    At cap 256, as in the kernel, the slot-0 run window: each window of
+    32 steps marks the steps whose symbol is the one in slot 0; its
+    leading run of r marked steps is emitted in closed form (cum 0, f0 +
+    step_inc * j, tot0 + step_inc * j for j < r), cut before the bump
+    that would take tot past K_MAX_FREQ, and every other slot's cu moves
+    by step_inc * r; the window's other steps are walked one by one.
     Same arguments and results as evolve_ref, as numpy int32 arrays."""
     sp = np.asarray(symplane).astype(np.int64)
     C, T = sp.shape
@@ -123,35 +130,99 @@ def evolve_prefix_mirror(symplane, counts, max_sym, cap: int,
         fr = (sy < ms).astype(np.int64)
         cu = np.minimum(sy, ms)
         tot = ms
-        for t in range(min(int(counts[c]), T)):
-            s = int(sp[c, t])
-            hit = np.argwhere(sy == s)
-            found = len(hit) > 0
-            o, kl = (int(hit[0, 0]), int(hit[0, 1])) if found else (32, -1)
-            if found:
-                out_cf[c, t] = int(cu[o, kl]) << 16 | int(fr[o, kl])
-                fr[o, kl] += step_inc
-                cu[o, kl + 1:] += step_inc
-                cu[o + 1:] += step_inc
-            out_tot[c, t] = tot
-            tot += step_inc
-            if tot > K_MAX_FREQ:
-                fr -= fr >> 1
-                flat = fr.reshape(-1)
-                cu = (np.cumsum(flat) - flat).reshape(32, K)
-                tot = int(flat.sum())
-            if found and kl > 0 and fr[o, kl] > fr[o, kl - 1]:
-                fv, fp = fr[o, kl], fr[o, kl - 1]
-                sy[o, kl], sy[o, kl - 1] = sy[o, kl - 1], s
-                fr[o, kl], fr[o, kl - 1] = fp, fv
-                cu[o, kl] = cu[o, kl - 1] + fv
-            if found and o > 0:
-                sent = int(fr[o, 0]) if kl == 0 else 0    # owner's value
-                fprev, sprev = int(fr[o - 1, K - 1]), int(sy[o - 1, K - 1])
-                if sent > fprev:
-                    fr[o - 1, K - 1], sy[o - 1, K - 1] = sent, s
-                    cu[o, 0] += sent - fprev
-                    fr[o, 0], sy[o, 0] = fprev, sprev
+        n = min(int(counts[c]), T)
+        for t0 in range(0, n, 32):
+            win = sp[c, t0:min(t0 + 32, n)]
+            r = 0
+            if cap == 256:
+                r = int(np.argmin(np.append(win == sy[0, 0], False)))
+                if tot + step_inc * r > K_MAX_FREQ:
+                    r = (K_MAX_FREQ - tot) // step_inc
+                d = step_inc * np.arange(r)
+                out_cf[c, t0:t0 + r] = fr[0, 0] + d
+                out_tot[c, t0:t0 + r] = tot + d
+                cu += step_inc * r
+                cu[0, 0] = 0
+                fr[0, 0] += step_inc * r
+                tot += step_inc * r
+            for i in range(r, len(win)):
+                s = int(win[i])
+                hit = np.argwhere(sy == s)
+                found = len(hit) > 0
+                o, kl = (int(hit[0, 0]), int(hit[0, 1])) if found else (32, -1)
+                t = t0 + i
+                if found:
+                    out_cf[c, t] = int(cu[o, kl]) << 16 | int(fr[o, kl])
+                    fr[o, kl] += step_inc
+                    cu[o, kl + 1:] += step_inc
+                    cu[o + 1:] += step_inc
+                out_tot[c, t] = tot
+                tot += step_inc
+                if tot > K_MAX_FREQ:
+                    fr -= fr >> 1
+                    flat = fr.reshape(-1)
+                    cu = (np.cumsum(flat) - flat).reshape(32, K)
+                    tot = int(flat.sum())
+                if found and kl > 0 and fr[o, kl] > fr[o, kl - 1]:
+                    fv, fp = fr[o, kl], fr[o, kl - 1]
+                    sy[o, kl], sy[o, kl - 1] = sy[o, kl - 1], s
+                    fr[o, kl], fr[o, kl - 1] = fp, fv
+                    cu[o, kl] = cu[o, kl - 1] + fv
+                if found and o > 0:
+                    sent = int(fr[o, 0]) if kl == 0 else 0    # owner's value
+                    fprev, sprev = int(fr[o - 1, K - 1]), int(sy[o - 1, K - 1])
+                    if sent > fprev:
+                        fr[o - 1, K - 1], sy[o - 1, K - 1] = sent, s
+                        cu[o, 0] += sent - fprev
+                        fr[o, 0], sy[o, 0] = fprev, sprev
+    return out_cf.astype(np.int32), out_tot.astype(np.int32)
+
+
+def tiny_window_mirror(symplane, counts, nsym: int):
+    """numpy mirror of csrc/fqz_evolve.cu's tiny_warp_kernel: per
+    context, windows of 32 steps, lane i holding the window's i-th
+    symbol.  Per symbol j a mask of the lanes holding it, and each
+    lane's count of them before it, give every lane its frequencies
+    from the window's starting ones.  The halving lane h is the first
+    lane whose pre-bump tot (tot + the in-range symbols before it)
+    reaches TINY_MAX; lanes after h start from g = halve(f + the counts
+    up to and including h) and add their counts since h.  At most one
+    halving falls in a window, and only (f, tot) carries to the next.
+    Same arguments and results as tiny_evolve_ref, as numpy int32
+    arrays."""
+    sp = np.asarray(symplane).astype(np.int64)
+    C, T = sp.shape
+    out_cf = np.zeros((C, T), np.int64)
+    out_tot = np.zeros((C, T), np.int64)
+    lanes = np.arange(32)
+    for c in range(C):
+        f = np.ones(nsym, np.int64)
+        n = min(int(counts[c]), T)
+        for t0 in range(0, n, 32):
+            m = min(32, n - t0)
+            s = np.full(32, -1, np.int64)
+            s[:m] = sp[c, t0:t0 + m]
+            mk = s[None, :] == np.arange(nsym)[:, None]      # (nsym, 32)
+            before = np.cumsum(mk, 1) - mk                    # lanes < i
+            pre = f.sum() + before.sum(0)                     # pre-bump tot
+            hs = np.flatnonzero((pre >= TINY_MAX) & (lanes < m))
+            fj = f[:, None] + before
+            if len(hs):
+                h = int(hs[0])
+                cle = mk[:, :h + 1].sum(1)
+                g = f + cle
+                g -= g >> 1
+                after = lanes > h
+                fj[:, after] = (g[:, None] + before - cle[:, None])[:, after]
+                f = g + mk.sum(1) - cle
+            else:
+                f = f + mk.sum(1)
+            tt = fj.sum(0)
+            below = np.arange(nsym)[:, None] < s[None, :]
+            cum = (fj * below).sum(0)
+            fs = (fj * mk).sum(0)
+            out_cf[c, t0:t0 + m] = (cum << 16 | fs)[:m]
+            out_tot[c, t0:t0 + m] = tt[:m]
     return out_cf.astype(np.int32), out_tot.astype(np.int32)
 
 
