@@ -22,7 +22,15 @@ Phases, each printed with its time; any failure exits non-zero:
      against the CPU on one small input.  The order-1 decode walk's
      route edges: alphabets just under and just over the shared-memory
      fit of its compact tables at shift 10 and 12 and a full byte
-     alphabet, each also with word rows cut short.  Model evolution:
+     alphabet, each also with word rows cut short.  The dense order-1
+     walk on tests/test_torch_dense_walk.py's cases (DENSE_CASES: shift
+     10 and 12, A = 6 to 140 with byte 0 a symbol or not, the
+     shared-memory fit at each shift, packed and counter tables,
+     single-symbol contexts; each round-tripped, with ragged lengths and
+     one 0, with word rows cut short and with the boundaries of half its
+     rows out of order; and tables built from s3 LUTs
+     as the engine builds them); the order-0 walk on four streams with
+     ragged lengths and rows cut short, and at B = 200.  Model evolution:
      65,536 contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256
      slots, 2^20 TinyModels x 256; at 128 slots, in both layouts, a
      ladder of runs that moves symbols across every lane boundary, zipf
@@ -38,12 +46,13 @@ Phases, each printed with its time; any failure exits non-zero:
      than the kernel's shared-memory ring of flush records) deferred
      across the chunk boundary.  Then times the walks of --walk-times alone at main-path
      shapes.
-  4. adaptive -- makes a FASTQ corpus with seeded numpy (150 bp reads,
-     random-walk qualities) and encodes the seq and qual of its first
-     10 MB block under SEQ10, SEQ12B, FQZ1 and FQZ3 as one batch on the
-     card; the payloads must equal the native host codecs'.
+  4. adaptive -- encodes the seq and qual of the first 10 MB block of a
+     FASTQ corpus (made with seeded numpy before phase 3: 150 bp reads,
+     random-walk qualities) under SEQ10, SEQ12B, FQZ1 and FQZ3 as one
+     batch on the card; the payloads must equal the native host codecs'.
   5. e2e     -- drives the port's CLI (fqzcomp5_tpu_torch.cli, whose
-     default engine is the card) at -1, -3 and -5, each path with every
+     default engine is the card) at -1, -3 and -5 on the whole corpus,
+     each path with every
      launch count set to 0 just before it and read just after: encode,
      decode, cmp; decodes the same archives with the host engine
      (-e host).  At -1 and -3 the archive is decoded once more with
@@ -57,7 +66,13 @@ Phases, each printed with its time; any failure exits non-zero:
      largest count).
      Reports the -5 peak device memory, and encodes a 4 MB prefix at -1
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
-     versions), requiring equal archives.
+     versions; in subprocesses started before phase 3, which run beside
+     the card's phases), requiring equal archives.
+  6. corrupt -- 8 seeded mutations each of a -1 and a -3 archive (byte
+     stomps that reach the rANS payloads, an absurd output size,
+     truncations), each decoded through the CLI on the card with both
+     table forms in a subprocess of its own: each must exit 0, or 1 with
+     ERROR: and no traceback, within its time limit.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.  Each kernel's bound_ms is the larger of
 the bytes its measured call moves (inputs read once, outputs written
@@ -65,21 +80,24 @@ once) over 3.35 TB/s and its integer operations over 16.7 T int32
 operations/s (132 SMs x 64 int32 lanes x 1.98 GHz, H100 SXM at 700 W);
 library_ms is null, as no PyTorch call computes an entropy coder's walk.
 
-    python3 chip_smoke.py --profile [--decode] [--level=-5[,-3...]] [--out DIR]
-                          [--root DIR]
+    python3 chip_smoke.py --profile [--decode [--boundary]] [--level=-5[,-3...]]
+                          [--out DIR] [--root DIR]
 
 builds the kernels, makes the same corpus and encodes it once at each
 given preset under cProfile and torch.profiler (with --decode: encodes
-it, then profiles the decode of the archive): writes the two tables to
-DIR/<preset> (default build/profile/) and prints the device's busy time
+it, then profiles the decode of the archive, through the boundary-table
+walks with --boundary): writes the two tables to DIR/<preset> (or
+DIR/<preset>-boundary; default build/profile/) and prints the device's busy time
 and idle share, the kernels' device times, the host functions that take
 the most time and the order-1 decode and model-evolution launch shapes.
 
-    python3 chip_smoke.py --walk-times [--root DIR]
+    python3 chip_smoke.py --walk-times [--decode] [--root DIR]
 
 only times the redesigned walks alone at the main path's shapes (the
-range coder, the rANS encode walk, the order-1 decode walk, evolve_128,
-the TinyModel walk, evolve_256), with cycles a step and their bounds.
+range coder, the rANS encode walk, the order-1 decode walks over s3 and
+over dense tables, the order-0 decode walks over s3 and over boundary
+tables, evolve_128, the TinyModel walk, evolve_256), with cycles a step
+and their bounds.
 --root DIR (default: this checkout) times or profiles the
 fqzcomp5_tpu_torch of the checkout at DIR, e.g. an unpacked parent
 commit, so that two versions are compared on one card in one call.
@@ -106,11 +124,16 @@ T_STEPS = 4096
 PATHS = (("-1", ("encode_walk",)), ("-3", ("encode_walk",)),
          ("-5", ("encode_walk", "evolve_128", "evolve_256", "tiny_evolve",
                  "rc_encode_walk")))
-# (preset, prefix MB) encoded on the card and on the CPU
+# (preset, prefix MB) encoded on the card and on the CPU, and the CPU
+# encodes' limit
 PREFIXES = (("-1", 4), ("-5", 1))
+CPU_ENCODE_TIMEOUT_S = 900
 # presets whose archive is decoded again through the boundary-table
 # walks, and the kernel each such decode must launch
 BOUNDARY = {"-1": "decode_bnd_o0", "-3": "decode_dense_o1"}
+# corrupt archives a preset in the corrupt phase, and each decode's limit
+CORRUPT_SEEDS = 8
+CORRUPT_TIMEOUT_S = 300
 # flush records the range-coder kernel's shared-memory ring holds
 # (csrc/rc_encode.cu: kStages x kRecords)
 RC_RING_RECORDS = 4 * 256
@@ -120,10 +143,20 @@ CLOCK_HZ = 1.98e9         # H100 SXM boost clock, for cycles a step
 SMS = 132                 # H100 SXM streaming multiprocessors
 # max_abs_err of the kernels' edge cases (check()), by kernel
 EDGE_ERRS: dict = {}
-# (B streams, T steps a lane, shift, symbols) of the order-1 decode walk
-# timed by --walk-times: the -3 and -1 decode launches' shapes (their
-# quality streams: 40 symbols and byte 0, 41 codes)
-WALK_DECODE_O1 = ((6, 1_494_492, 10, 40), (16, 149_925, 10, 40))
+# (B streams, T steps a lane, shift, symbols, quality-like random walk or
+# uniform symbols) of the order-1 decode walks (decode_o1, and
+# decode_dense_o1 on the same streams) timed by --walk-times: the -3 and
+# -1 decode launches' shapes (their quality streams: 40 symbols, and byte
+# 0, 41 codes in decode_o1's tables), and -1's with 100 uniform symbols
+# (the dense tables' counter form; the most words a step from the ring)
+WALK_DECODE_O1 = ((6, 1_494_492, 10, 40, True), (16, 149_925, 10, 40, True),
+                  (9, 149_925, 10, 40, True), (16, 149_925, 10, 100, False))
+# (B streams, T steps a lane, alphabet) of the order-0 decode walks timed
+# by --walk-times: the -1 decode launches' shapes (their reads' bases), and
+# -1's with uniform bytes (8 bits a symbol: half the lanes renormalise
+# each step)
+WALK_DECODE_O0 = ((16, 149_925, b"ACGT"), (9, 149_925, b"ACGT"),
+                  (16, 149_925, bytes(range(256))))
 # (C contexts, T steps, max_sym) of evolve_128 timed by --walk-times: -5
 # count buckets (short, the largest, and one of long contexts) and one
 # long context
@@ -197,6 +230,101 @@ def _normalise(counts, shift, np):
                       np.take_along_axis(f, am[..., None], -1)
                       + fix[..., None], -1)
     return f
+
+
+# the dense order-1 walk's edge cases (shift, A, byte 0 a symbol, where
+# csrc/rans_decode_bnd.cu keeps the compact tables): A = 6 and 40 (-3's
+# qualities), the shared-memory fit at shift 12 (A = 50 | 51) and at
+# shift 10 (139 | 140), the packed form's last A = 64, the counter form
+EDGE_T = 40
+DENSE_CASES = ((10, 6, False, "shared"), (12, 6, True, "shared"),
+               (10, 40, False, "shared"), (12, 40, True, "shared"),
+               (12, 50, False, "shared"), (12, 51, True, "global"),
+               (10, 64, True, "shared"), (12, 64, False, "global"),
+               (10, 100, False, "shared"), (10, 139, True, "shared"),
+               (10, 140, False, "global"))
+
+
+def _compact_rows(w, nw, np):
+    """An encode walk's (words, nwords) on the CPU -> the (B, W) int16
+    word rows a decode walk reads."""
+    w, nw = w.numpy(), nw.numpy()
+    words = np.zeros((len(nw), max(1, int(nw.max()))), np.int16)
+    for b, n in enumerate(nw):
+        words[b, :n] = w[b, w.shape[1] - n:]
+    return words
+
+
+def dense_case(np, rng, A: int, shift: int, zero: bool, B: int = 3,
+               T: int = EDGE_T, single: bool = True):
+    """B order-1 streams of T steps a lane over A bytes (byte 0 among them
+    when zero), every byte used, encoded by the plain walk on the CPU;
+    with single, the second byte is always followed by the third (a
+    single-symbol context, f = tot).  Returns (words (B, W) int16, R0
+    (B, 32) int32, tab, A1, last0, dense symbols (B, T, 32) uint8,
+    freqs (B, 256, 256)), tab from build_o1_dense_tables of freqs."""
+    import torch
+    from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_torch
+
+    pool = np.arange(1, 256)
+    alpha = np.sort(rng.choice(pool, A - zero, replace=False))
+    if zero:
+        alpha = np.concatenate([[0], alpha])
+    sym = rng.integers(0, A, (B, T, 32))
+    k = A // 32 + 2
+    sym[:, 1:1 + k] = (np.arange(32 * k) % A).reshape(k, 32)
+    if single and A > 2:
+        for t in range(1, T):
+            sym[:, t] = np.where(sym[:, t - 1] == 1, 2, sym[:, t])
+    byte = alpha[sym]
+    flat = byte.copy()
+    flat[:, 1:] += byte[:, :-1] * 256
+    counts = np.stack([np.bincount(f.reshape(-1), minlength=65536)
+                       for f in flat])
+    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
+    Rf, w, nw = rans_torch.encode_walk_ref(
+        torch.from_numpy(flat.astype(np.int32)),
+        rans_torch.tables_from_numpy(freqs, "freqs", shift=shift), shift)
+    tab, got, A2, A1, last0 = rans_bnd_torch.build_o1_dense_tables(freqs,
+                                                                   shift)
+    if A2 != A or not np.array_equal(got, alpha) or A1 != A + (not zero):
+        raise AssertionError(f"dense case A={A}: the tables' alphabet is "
+                             f"{A2} symbols, {A1} contexts")
+    return (_compact_rows(w, nw, np), Rf.numpy(), tab, A1, last0,
+            sym.astype(np.uint8), freqs)
+
+
+def scramble_boundaries(np, rng, tab, A: int, A1: int):
+    """Dense tables tab (B, A1 * (A+1)) with the boundary fields of the
+    entries 1..A shuffled in about half of each stream's rows (tags, F
+    fields and bases kept): rows whose boundaries do not rise."""
+    bmask = np.uint32(0x1FFF if A <= 64 else 0x3FFF)
+    E = np.asarray(tab).view(np.uint32).reshape(len(tab), A1, A + 1).copy()
+    for row in E.reshape(-1, A + 1):
+        if rng.random() < 0.5:
+            row[1:] = (row[1:] & ~bmask) | rng.permutation(row[1:] & bmask)
+    return E.reshape(len(tab), -1).view(np.int32)
+
+
+def o0_case(np, rng, T: int = EDGE_T):
+    """Four order-0 streams of T steps a lane, encoded by the plain walk:
+    qualities, a single symbol (f = 4096 wraps to 0 in s3), DNA and
+    uniform bytes.  Returns (words, R0, s3 (B, 4096) int32, plane (B, T,
+    32) uint8)."""
+    import torch
+    from fqzcomp5_tpu_torch.ops import rans_torch
+
+    plane = np.stack([rng.integers(30, 70, (T, 32)), np.full((T, 32), 65),
+                      rng.choice([65, 67, 71, 84], (T, 32)),
+                      rng.integers(0, 256, (T, 32))]).astype(np.uint8)
+    freqs = _normalise(np.stack([np.bincount(p.reshape(-1), minlength=256)
+                                 for p in plane]), 12, np)
+    Rf, w, nw = rans_torch.encode_walk_ref(
+        torch.from_numpy(plane), rans_torch.tables_from_numpy(
+            freqs, "freqs", shift=12), 12,
+        nsym=torch.full((len(plane),), T * 32, dtype=torch.int32))
+    s3 = rans_torch.build_s3(freqs, 12).view(np.int32)
+    return _compact_rows(w, nw, np), Rf.numpy(), s3, plane
 
 
 def _straddle_streams(rng, np, B: int, T: int, a: int, b: int):
@@ -696,7 +824,38 @@ def _o1_walk_case(B, T, shift, A, g, np, torch, dev, walk=True):
     s3 = rans_torch.tables_from_numpy(
         rans_torch.build_s3(freqs, shift).reshape(B, -1), "s3", device=dev)
     t_real = torch.full((B,), T, dtype=torch.int32, device=dev)
-    return (words, Rf, s3, t_real, T, shift), sym.to(torch.uint8)
+    return (words, Rf, s3, t_real, T, shift), sym.to(torch.uint8), freqs
+
+
+def _o0_walk_case(B, T, g, np, torch, dev, alphabet=b"ACGT"):
+    """B order-0 streams of T steps a lane uniform over alphabet (DNA
+    bases: -1's order-0 streams are its reads' bases), encoded on the card
+    by the encode walk.  Returns (decode_o0 arguments, the symbols (B, T, 32)
+    uint8, the frequencies (B, 256))."""
+    from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
+
+    alpha = torch.tensor(list(alphabet), dtype=torch.uint8, device=dev)
+    sym = alpha[torch.randint(0, len(alphabet), (B, T, 32), device=dev,
+                              generator=g)]
+    counts = torch.stack([torch.bincount(sym[b].view(-1).to(torch.int64),
+                                         minlength=256)
+                          for b in range(B)]).cpu().numpy()
+    freqs = _normalise(counts, 12, np)
+    Rf, w, nw = rans_cuda.encode_walk(
+        sym, rans_torch.tables_from_numpy(freqs, "freqs", shift=12,
+                                          device=dev), 12,
+        nsym=torch.full((B,), T * 32, dtype=torch.int32, device=dev))
+    nw = nw.cpu().numpy()
+    cap = w.shape[1]
+    words = torch.zeros((B, max(1, int(nw.max()))), dtype=torch.int16,
+                        device=dev)
+    for b, n in enumerate(nw):
+        words[b, :n] = w[b, cap - n:]
+    del w
+    s3 = rans_torch.tables_from_numpy(rans_torch.build_s3(freqs, 12), "s3",
+                                      device=dev)
+    t_real = torch.full((B,), T, dtype=torch.int32, device=dev)
+    return (words, Rf, s3, t_real, T), sym, freqs
 
 
 def check(name: str, label: str, got, want) -> None:
@@ -826,8 +985,8 @@ def decode_o1_edge_cases(np, torch, dev) -> None:
     for shift, A, route in ((12, 51, "shared"), (12, 52, "global"),
                             (10, 140, "shared"), (10, 141, "global"),
                             (12, 256, "s3")):
-        args, sym = _o1_walk_case(8, 1024, shift, A - 1, g, np, torch, dev,
-                                  walk=False)
+        args, sym, _ = _o1_walk_case(8, 1024, shift, A - 1, g, np, torch,
+                                     dev, walk=False)
         s3 = args[2].cpu().numpy().view(np.uint32)
         tabs = [rans_torch.o1_compact_tables(r, shift) for r in s3]
         if {(len(t[0]), t[1]) for t in tabs} != {(A, route)}:
@@ -845,20 +1004,128 @@ def decode_o1_edge_cases(np, torch, dev) -> None:
               rans_cuda_dec.decode_o1(*cut), rans_torch.decode_o1_ref(*cut))
 
 
-def walk_times(np, torch, dev) -> None:
+def dense_o0_edge_cases(np, torch, dev) -> None:
+    """decode_dense_o1 and decode_o0 against their plain versions, zero
+    tolerance, on tests/test_torch_dense_walk.py's cases (dense_case,
+    DENSE_CASES, o0_case): each dense case round-trips, then runs with
+    ragged lengths (one 0), with its word rows cut to a quarter and with
+    the boundaries of half its rows out of order (scramble_boundaries;
+    against the numpy mirror, and in the packed form against the plain
+    version too); tables
+    as the engine builds them at shift 12 (single-symbol contexts wrapped
+    in s3, byte 0 from the contexts that never occur); the order-0 cases
+    with ragged lengths and rows cut short; and decode_o0 at B = 200
+    (more streams than SMs: several blocks share an SM)."""
+    from fqzcomp5_tpu_torch.ops import (rans_bnd_torch, rans_cuda_bnd,
+                                        rans_cuda_dec, rans_torch)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    T = EDGE_T
+    full = np.full(3, T, np.int32)
+    ragged = np.array([T, 17, 0], np.int32)
+
+    def dense(label, words, R0, tab, shift, A, A1, last0, sym):
+        for what, w, tr in (("round-trips", words, full),
+                            ("ragged, one empty", words, ragged),
+                            ("rows cut short",
+                             words[:, :max(1, words.shape[1] // 4)], full)):
+            args = (put(w), put(R0), put(tab), put(tr), T, shift, A, A1,
+                    last0)
+            got = rans_cuda_bnd.decode_dense_o1(*args)
+            if what == "round-trips" and not np.array_equal(
+                    got[0].cpu().numpy(), sym):
+                raise AssertionError(f"decode_dense_o1 {label}: the "
+                                     "symbols do not round-trip")
+            check("decode_dense_o1", f"{label} {what}", got,
+                  rans_bnd_torch.decode_dense_o1_ref(*args))
+        # rows whose boundaries do not rise: the kernel against its numpy
+        # mirror (every slot written, none read out of bounds) and, in the
+        # packed form, where the two agree on any boundaries, against the
+        # plain version
+        bad = scramble_boundaries(np, np.random.default_rng(A1 + shift),
+                                  tab, A, A1)
+        args = (put(words), put(R0), put(bad), put(full), T, shift, A, A1,
+                last0)
+        got = rans_cuda_bnd.decode_dense_o1(*args)
+        mir = rans_bnd_torch.decode_dense_compact(words, R0, bad, full, T,
+                                                  shift, A, A1, last0)
+        check("decode_dense_o1", f"{label} boundaries out of order "
+              "(numpy mirror)", got,
+              [put(mir[0]), put(mir[1].view(np.int32)), put(mir[2])])
+        if A <= rans_bnd_torch.DENSE_MAX_A:
+            check("decode_dense_o1", f"{label} boundaries out of order",
+                  got, rans_bnd_torch.decode_dense_o1_ref(*args))
+
+    for shift, A, zero, route in DENSE_CASES:
+        rng = np.random.default_rng(1000 * shift + A)
+        words, R0, tab, A1, last0, sym, _ = dense_case(np, rng, A, shift,
+                                                       zero)
+        if rans_bnd_torch.dense_route(A, shift) != route:
+            raise AssertionError(f"dense case A={A} shift{shift} is not on "
+                                 f"the {route} route")
+        dense(f"A={A} A1={A1} shift{shift} {route}", words, R0, tab, shift,
+              A, A1, last0, sym)
+    words, R0, _, _, _, sym, freqs = dense_case(
+        np, np.random.default_rng(12), 5, 12, False)
+    tab, _, A, A1, last0 = rans_bnd_torch.build_o1_dense_tables(
+        rans_bnd_torch.freqs_from_s3(rans_torch.build_s3(freqs, 12)
+                                     .reshape(3, -1), 12), 12)
+    dense(f"engine tables A={A} A1={A1} shift12", words, R0, tab, 12, A, A1,
+          last0, sym + 1)
+
+    words, R0, s3, plane = o0_case(np, np.random.default_rng(7))
+    t_real = np.array([T, 13, 0, T - 1], np.int32)
+    for what, w in (("ragged, one empty", words),
+                    ("rows cut short", words[:, :max(1, words.shape[1] // 4)])):
+        args = (put(w), put(R0), put(s3), put(t_real), T)
+        got = rans_cuda_dec.decode_o0(*args)
+        if w is words and not np.array_equal(got[0][0].cpu().numpy(),
+                                             plane[0]):
+            raise AssertionError("decode_o0: stream 0 does not round-trip")
+        check("decode_o0", f"cases of 4 streams {what}", got,
+              rans_torch.decode_o0_ref(*args))
+    rng = np.random.default_rng(SEED + 6)
+    cap = T_STEPS * 32
+    datas = [rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                        int(rng.integers(1, cap + 1))) for _ in range(200)]
+    datas[7] = datas[7][:20]
+    freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+    args = (words, R0, rans_torch.tables_from_numpy(
+        rans_torch.build_s3(freqs, 12), "s3", device=dev), put(lens // 32),
+        T_STEPS)
+    got = rans_cuda_dec.decode_o0(*args)
+    syms = got[0].cpu().numpy()
+    for b, d in enumerate(datas):
+        t = len(d) // 32
+        if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
+            raise AssertionError(f"decode_o0 B=200: stream {b} does not "
+                                 "round-trip")
+    check("decode_o0", "B=200 x T=4096 ragged, one empty (round-trips)", got,
+          rans_torch.decode_o0_ref(*args))
+
+
+def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     """The hand-redesigned walks alone, one launch each, at the main
     path's shapes: the range coder at B = 12 x T = 2^24 and at the -5 e2e
     launch shape B = 2 x T = 2^22 (CHUNK_T), the rANS encode walk at B = 4
     x T = 2^20 order-0 (uint8 plane) and order-1 (flat int32 plane) at
-    shift 12, the order-1 decode walk at the -3 and -1 launch shapes
-    (WALK_DECODE_O1), the 128-slot model evolution at -5's bucket
+    shift 12, the order-1 decode walks (decode_o1 and decode_dense_o1 on
+    the same streams) at the -3 and -1 launch shapes and on uniform
+    symbols (WALK_DECODE_O1), the order-0 decode walks (decode_o0 and
+    decode_bnd_o0) at the -1 launch shapes on bases and on uniform bytes
+    (WALK_DECODE_O0), the 128-slot model evolution at -5's bucket
     shapes (WALK_EVOLVE_128), the TinyModel walk at -5's bucket shapes
     (WALK_TINY) and the 256-slot walk on -5's run-length rows and on
     uniform symbols (WALK_EVOLVE_256).  Uses only the wrappers'
     interfaces, so it times any version of the package (--walk-times
-    --root DIR)."""
-    from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda, rans_cuda_dec,
-                                        rans_torch, rc_cuda, rc_torch)
+    --root DIR); decode_only (--walk-times --decode) stops after the
+    decode walks."""
+    from fqzcomp5_tpu_torch.ops import (model_cuda, rans_bnd_torch,
+                                        rans_cuda, rans_cuda_bnd,
+                                        rans_cuda_dec, rans_torch, rc_cuda,
+                                        rc_torch)
 
     def show(name, label, ms, T, nsteps, nbytes):
         b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsteps)
@@ -868,16 +1135,63 @@ def walk_times(np, torch, dev) -> None:
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    for B, T, shift, A in WALK_DECODE_O1:
-        args, sym = _o1_walk_case(B, T, shift, A, g, np, torch, dev)
+    for B, T, shift, A, walk in WALK_DECODE_O1:
+        args, sym, freqs = _o1_walk_case(B, T, shift, A, g, np, torch, dev,
+                                         walk)
+        kind = "" if walk else " uniform"
         k_ms, out = _time(lambda: rans_cuda_dec.decode_o1(*args), 1)
         if not torch.equal(out[0], sym):
             raise AssertionError(f"decode_o1 B={B} T={T} shift{shift}: the "
                                  "symbols do not round-trip")
         # words, states, tables and lengths read; symbols, states written
-        show("decode_o1", f"B={B} T={T} shift{shift} A={A}", k_ms, T,
+        show("decode_o1", f"B={B} T={T} shift{shift} A={A}{kind}", k_ms, T,
              B * T * 32, _nbytes(*args[:4], *out))
-        del args, sym, out
+        del out
+        # the same streams through the dense tables (A symbols, byte 0
+        # not among them: A1 = A + 1)
+        tab, alpha, A, A1, last0 = rans_bnd_torch.build_o1_dense_tables(
+            freqs, shift)
+        dargs = (*args[:2], torch.from_numpy(tab).to(dev), *args[3:], A, A1,
+                 last0)
+        k_ms, out = _time(lambda: rans_cuda_bnd.decode_dense_o1(*dargs), 1)
+        alpha = torch.from_numpy(alpha.astype(np.uint8)).to(dev)
+        if not torch.equal(alpha[out[0].to(torch.int64)], sym):
+            raise AssertionError(f"decode_dense_o1 B={B} T={T} shift{shift}: "
+                                 "the symbols do not round-trip")
+        show("decode_dense_o1", f"B={B} T={T} shift{shift} A={A} A1={A1}"
+             f"{kind}", k_ms, T, B * T * 32, _nbytes(*dargs[:4], *out))
+        del args, dargs, sym, out
+    for B, T, alphabet in WALK_DECODE_O0:
+        args, sym, freqs = _o0_walk_case(B, T, g, np, torch, dev, alphabet)
+        kind = "ACGT" if alphabet == b"ACGT" else "uniform bytes"
+        k_ms, out = _time(lambda: rans_cuda_dec.decode_o0(*args), 1)
+        if not torch.equal(out[0], sym):
+            raise AssertionError(f"decode_o0 B={B} T={T}: the symbols do not "
+                                 "round-trip")
+        show("decode_o0", f"B={B} T={T} {kind}", k_ms, T, B * T * 32,
+             _nbytes(*args[:4], *out))
+        # the same streams through the boundary tables, as -1's
+        # FQZ5_DEC_V3 decode builds them (S = 256, the counter form)
+        tab, f0, S, packed = rans_bnd_torch.o0_tables(
+            rans_torch.build_s3(freqs, 12))
+        bargs = (*args[:2], torch.from_numpy(tab).to(dev),
+                 torch.from_numpy(f0).to(dev), *args[3:], S)
+        k_ms, out = _time(lambda: rans_cuda_bnd.decode_bnd_o0(
+            *bargs, packed=packed), 1)
+        if not torch.equal(out[0], sym):
+            raise AssertionError(f"decode_bnd_o0 B={B} T={T}: the symbols do "
+                                 "not round-trip")
+        b_ms, by = _bound(_nbytes(*bargs[:5], *out), (
+            OPS_PER_STEP["decode_bnd_o0"] + 2 * S.bit_length()) * B * T * 32)
+        log(f"  walk decode_bnd_o0 B={B} T={T} {kind} S={S} "
+            f"{'packed' if packed else 'counter'}: {k_ms:.3f} ms "
+            f"({T / k_ms / 1e3:.3f} M steps/s a stream, "
+            f"{k_ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step at "
+            f"{CLOCK_HZ / 1e9:.2f} GHz)  bound {b_ms:.4f} ms ({by})")
+        del args, bargs, sym, out
+    if decode_only:
+        return
+
     def show_evolve(name, label, ms, counts):
         C, steps, T = len(counts), int(counts.sum()), int(counts.max())
         b_ms, by = _bound(steps * 9 + 8 * C, OPS_PER_STEP[name] * steps)
@@ -1110,9 +1424,10 @@ def bnd_kernels_vs_plain(np, torch, dev):
                     raise AssertionError(
                         f"decode_dense_o1 A={A} shift{shift}: stream {b} "
                         "does not round-trip")
+            # a step needs no search (csrc/rans_decode_bnd.cu)
             record("decode_dense_o1", f"A={A} shift{shift}",
                    _max_err(k_out, p_out), k_ms, p_ms, int(iszs.sum()) * 32,
-                   _nbytes(*args[:4], *k_out), A.bit_length())
+                   _nbytes(*args[:4], *k_out), 0)
     for name, rows in res.items():
         bad = [r for r in rows if r[1] != 0]
         if bad:
@@ -1207,6 +1522,88 @@ def make_corpus(path: str, target_mb: int, np) -> int:
             out.write(blob)
             total += len(blob)
     return total
+
+
+def corrupt_corpus(np, nrec: int, L: int) -> bytes:
+    """A FASTQ of nrec reads of L bp (make_corpus's model, seed SEED + 7)
+    for the corrupt-archive checks."""
+    rng = np.random.default_rng(SEED + 7)
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), (nrec, L))
+    q = (np.cumsum(rng.integers(-2, 3, (nrec, L)), axis=1) % 40 + 36
+         ).astype(np.uint8)
+    return b"".join(b"@c%d\n" % k + seq[k].tobytes() + b"\n+\n"
+                    + q[k].tobytes() + b"\n" for k in range(nrec))
+
+
+def _payload_spans(raw: bytes) -> dict:
+    """{"seq"/"qual": (offset, length)} of the first block's section
+    payloads in an FQZ5 v1.1 archive (cuda_driver._split_block's walk)."""
+    import struct
+
+    from fqzcomp5_tpu_torch.utils import varint
+
+    off = 16 + 12                       # magic, index offset; block head
+    (clen,) = struct.unpack_from("<I", raw, off + 5)
+    off += 9 + clen                     # names
+    lstrat = raw[off]
+    off += 1
+    if lstrat > 0:
+        off += varint.get_u32(raw, off)[1]
+    else:
+        off += 4 + struct.unpack_from("<I", raw, off)[0]
+    spans = {}
+    for key in ("seq", "qual"):
+        (clen,) = struct.unpack_from("<I", raw, off + 5)
+        spans[key] = (off + 9, clen)
+        off += 9 + clen
+    return spans
+
+
+def corrupt_archive(np, raw: bytes, seed: int) -> tuple[bytes, str]:
+    """One seeded mutation of a one-block FQZ5 v1.1 archive: (bytes,
+    what).  By seed mod 8: 0, 4 stomp bytes of the block's qual payload,
+    1, 5 of its seq payload, 2 of the first 24 bytes of its seq payload
+    (order byte, sizes, frequency tables); 6 sets the qual payload's
+    output size to 2^32 - 1; each recomputes the block's CRC (and sizes
+    and index offset), so that the mutation reaches the section decoders
+    (tests/test_fuzz_deep.py's _refix).  3 and 7 truncate the archive
+    inside the block."""
+    import struct
+    import zlib
+
+    from fqzcomp5_tpu_torch.utils import varint
+
+    rng = np.random.default_rng(SEED + 100 + seed)
+    bad = bytearray(raw)
+    start = 16
+    end = min(start + 4 + struct.unpack_from("<I", raw, start)[0], len(raw))
+    spans = _payload_spans(raw)
+    kind = seed % 8
+    if kind in (3, 7):
+        cut = int(rng.integers(start + 12, end))
+        return bytes(bad[:cut]), f"truncated at {cut} of {len(raw)}"
+    if kind == 6:
+        off, n = spans["qual"]
+        nb = varint.get_u32(raw, off + 1)[1]
+        size = varint.put_u32(0xFFFFFFFF)
+        bad[off + 1:off + 1 + nb] = size
+        d = len(size) - nb
+        end += d
+        for at, fmt in ((start, "<I"), (off - 4, "<I"), (8, "<Q")):
+            struct.pack_into(fmt, bad, at,
+                             struct.unpack_from(fmt, raw, at)[0] + d)
+        what = "qual payload's output size set to 2^32 - 1"
+    else:
+        sec = ("qual", "seq", "seq")[kind % 4]
+        off, n = spans[sec]
+        n = min(n, 24) if kind == 2 else n
+        pos = sorted(int(p) for p in off + rng.integers(0, n, 1 + seed % 3))
+        for p in pos:
+            bad[p] = (bad[p] + int(rng.integers(1, 256))) & 0xFF
+        what = f"{sec} payload stomped at {pos}"
+    struct.pack_into("<I", bad, start + 8,
+                     zlib.crc32(bytes(bad[start + 12:end])) & 0xFFFFFFFF)
+    return bytes(bad), what
 
 
 def prefix_copy(src: str, dst: str, nbytes: int) -> None:
@@ -1308,37 +1705,130 @@ def adaptive_vs_host(src: str, dev) -> None:
         f"codecs {host_s:.3f} s; payloads {[len(g) for g in got]} equal")
 
 
-def card_vs_cpu(src: str, work: str, lvl: str, mb: int) -> None:
-    """Encode a prefix of src at lvl on the card (CLI) and on the CPU
-    (plain versions, in-process) and require equal archives."""
+def corrupt_on_card(np, work: str) -> None:
+    """Corrupt -1 and -3 archives (corrupt_archive, seeds 0-7, of a 6.6 MB
+    corrupt_corpus) decoded through the port's CLI on the card, through
+    both table forms, each in its own subprocess with a timeout, eight at
+    a time: each must exit 0, or 1 with ERROR: and no traceback (a
+    kernel's trap, or any other CUDA error, surfaces as a traceback)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = os.path.join(work, "corrupt.fastq")
+    with open(src, "wb") as fp:
+        fp.write(corrupt_corpus(np, 20000, 150))
+    jobs = []
+    for lvl in ("-1", "-3"):
+        comp = os.path.join(work, f"corrupt{lvl}.fqz5")
+        run_cli([lvl, "-V", src, comp])
+        with open(comp, "rb") as fp:
+            raw = fp.read()
+        for seed in range(CORRUPT_SEEDS):
+            bad, what = corrupt_archive(np, raw, seed)
+            path = os.path.join(work, f"bad{lvl}_{seed}.fqz5")
+            with open(path, "wb") as fp:
+                fp.write(bad)
+            jobs += [(lvl, seed, what, route, path)
+                     for route in ("lut", "boundary")]
+
+    def run(job):
+        _, _, _, route, path = job
+        env = {k: v for k, v in os.environ.items() if k != "FQZ5_DEC_V3"}
+        if route == "boundary":
+            env["FQZ5_DEC_V3"] = "1"
+        t1 = time.monotonic()
+        try:
+            p = subprocess.run(
+                [sys.executable, "-m", "fqzcomp5_tpu_torch.cli", "-d", "-V",
+                 path, f"{path}.{route}.fastq"], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=CORRUPT_TIMEOUT_S)
+            return job, p.returncode, p.stderr, time.monotonic() - t1
+        except subprocess.TimeoutExpired:
+            return job, None, "timed out", time.monotonic() - t1
+
+    with ThreadPoolExecutor(8) as ex:
+        results = list(ex.map(run, jobs))
+    failed = []
+    for (lvl, seed, what, route, _), rc, err, sec in results:
+        last = err.strip().splitlines()[-1][:100] if err.strip() else ""
+        log(f"  corrupt {lvl} seed {seed} ({what}), {route} tables: exit "
+            f"{rc} in {sec:.1f} s  {last}")
+        if not (rc == 0 or rc == 1 and "ERROR:" in err
+                and "Traceback" not in err):
+            failed.append((lvl, seed, route, rc, err[-2000:]))
+    if failed:
+        raise AssertionError(f"corrupt archives that did not end in exit 0 "
+                             f"or ERROR: and exit 1: {failed}")
+    if not any(r[1] == 0 for r in results):
+        raise AssertionError("no corrupt archive decoded to its end: the "
+                             "mutations did not reach the walks")
+    log(f"corrupt archives: {len(results)} decodes, "
+        f"{sum(r[1] == 0 for r in results)} exit 0, "
+        f"{sum(r[1] == 1 for r in results)} ERROR: and exit 1")
+
+
+def start_cpu_encodes(src: str, work: str) -> list:
+    """For each of PREFIXES, writes the prefix of src and starts its CPU
+    encode (plain versions) in a subprocess (--cpu-encode).  Returns
+    [(preset, MB, prefix path, archive path, Popen)]."""
+    jobs = []
+    for lvl, mb in PREFIXES:
+        pre = os.path.join(work, f"prefix{lvl}.fastq")
+        prefix_copy(src, pre, mb * 1_000_000)
+        out = os.path.join(work, f"prefix{lvl}.cpu.fqz5")
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-encode", lvl,
+             pre, out], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        jobs.append((lvl, mb, pre, out, p))
+    return jobs
+
+
+def cpu_encode(lvl: str, src: str, dst: str) -> int:
+    """--cpu-encode: encodes src at lvl on the CPU (plain versions) to
+    dst; prints the seconds it took."""
     import torch
+
+    sys.path.insert(0, ROOT)
     from fqzcomp5_tpu_torch import cli, cuda_driver
 
-    pre = os.path.join(work, "prefix.fastq")
-    prefix_copy(src, pre, mb * 1_000_000)
-    gpu_c = os.path.join(work, "prefix.gpu.fqz5")
-    cpu_c = os.path.join(work, "prefix.cpu.fqz5")
-    run_cli([lvl, "-V", pre, gpu_c])
+    torch.set_num_threads(2)
     arg, _, _ = cli.parse_args([lvl, "-V"])
     t1 = time.monotonic()
-    with open(cpu_c, "wb") as fp:
-        cuda_driver.encode_file(pre, fp, arg, cuda_driver.Timings(),
+    with open(dst, "wb") as fp:
+        cuda_driver.encode_file(src, fp, arg, cuda_driver.Timings(),
                                 torch.device("cpu"))
+    print(f"{time.monotonic() - t1:.3f}")
+    return 0
+
+
+def card_vs_cpu(work: str, lvl: str, mb: int, pre: str, cpu_c: str,
+                proc) -> None:
+    """Encodes the prefix pre at lvl on the card (CLI), waits for its CPU
+    encode (start_cpu_encodes) and requires equal archives."""
+    gpu_c = os.path.join(work, "prefix.gpu.fqz5")
+    run_cli([lvl, "-V", pre, gpu_c])
+    out, err = proc.communicate(timeout=CPU_ENCODE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CPU encode of the {mb} MB prefix at {lvl} "
+                           f"exited {proc.returncode}: {err[-2000:]}")
     same(gpu_c, cpu_c)
     log(f"{mb} MB prefix at {lvl}: card and CPU (plain versions) archives "
-        f"are equal (CPU encode {time.monotonic() - t1:.3f} s)")
+        f"are equal (CPU encode {out.strip()} s, in a subprocess beside "
+        f"the card's phases)")
     for p in (pre, gpu_c, cpu_c):
         os.remove(p)
 
 
 class LaunchShapes:
-    """Inside a with block, records the shape of every s3-LUT rANS decode
-    and model-evolution launch (through a wrapper around the package's
+    """Inside a with block, records the shape of every rANS decode and
+    model-evolution launch (through a wrapper around the package's
     function, which it calls unchanged) and logs them at the end with
     their bounds: B, T, word-row width, lengths (and shift and each
-    stream's alphabet at order 1) of the decodes; for each evolve walk
-    (evolve_128, evolve_256, tiny_evolve) C, T, the largest count (the
-    longest chain) and the steps of every launch."""
+    stream's alphabet of the s3-LUT order-1 walk, the bucket S of the
+    boundary order-0 walk, A, A1 and the tables' route of the dense
+    order-1 walk) of the decodes; for each evolve walk (evolve_128,
+    evolve_256, tiny_evolve) C, T, the largest count (the longest chain)
+    and the steps of every launch."""
 
     def __init__(self, what: str):
         self.what = what
@@ -1346,10 +1836,15 @@ class LaunchShapes:
 
     def __enter__(self):
         import torch
-        from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_dec
+        from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda_bnd,
+                                            rans_cuda_dec)
 
         self.saved = ((rans_cuda_dec, "decode_o0", rans_cuda_dec.decode_o0),
                       (rans_cuda_dec, "decode_o1", rans_cuda_dec.decode_o1),
+                      (rans_cuda_bnd, "decode_bnd_o0",
+                       rans_cuda_bnd.decode_bnd_o0),
+                      (rans_cuda_bnd, "decode_dense_o1",
+                       rans_cuda_bnd.decode_dense_o1),
                       (model_cuda, "evolve_128", model_cuda.evolve_128),
                       (model_cuda, "evolve_256", model_cuda.evolve_256),
                       (model_cuda, "tiny_evolve", model_cuda.tiny_evolve))
@@ -1360,7 +1855,7 @@ class LaunchShapes:
                 # the host (its counts kept alive on the card until the
                 # end would count in the path's peak device memory)
                 if _name.startswith("decode"):
-                    seen = a[1:]
+                    seen = (*a[1:], *kw.values())
                 else:
                     ct = a[1].cpu().to(torch.int64).clamp(0, a[0].shape[1])
                     seen = (int(ct.max()), int(ct.sum()))
@@ -1381,22 +1876,41 @@ class LaunchShapes:
         evolves = {}   # walk -> (shapes, steps, bytes)
         for name, shape, a in self.seen:
             if name.startswith("decode"):
-                R0, s3, t_real, T = a[:4]
+                from fqzcomp5_tpu_torch.ops import rans_bnd_torch
+
+                R0, tab = a[:2]
+                tabs = (tab,)
+                if name == "decode_bnd_o0":
+                    f0, t_real, T, S, packed = a[2:7]
+                    tabs = (tab, f0)
+                    ops = OPS_PER_STEP[name] + 2 * S.bit_length()
+                    alph = f" S={S} {'packed' if packed else 'counter'}"
+                else:
+                    t_real, T = a[2:4]
+                    ops = OPS_PER_STEP[name]
+                    alph = ""
                 B, W = shape
                 steps = int(t_real.to(torch.int64).clamp(0, T).sum()) * 32
                 # words, states, tables, lengths read; symbols, states,
                 # word counts written
-                b_ms, by = _bound(2 * B * W + _nbytes(R0, s3, t_real, R0)
-                                  + B * T * 32 + 4 * B,
-                                  OPS_PER_STEP[name] * steps)
-                alph = ""
+                b_ms, by = _bound(2 * B * W + _nbytes(R0, *tabs, t_real, R0)
+                                  + B * T * 32 + 4 * B, ops * steps)
                 if name == "decode_o1":
                     alph = []
-                    for row in s3:
+                    for row in tab:
                         v = row[row != 0] & 0xFF
                         alph.append(int(torch.unique(torch.cat(
                             [v, v.new_zeros(1)])).numel()))
                     alph = f" shift={a[4]} alphabets={alph}"
+                elif name == "decode_dense_o1":
+                    shift, A, A1, last0 = a[4:8]
+                    # (a package from before the compact tables keeps
+                    # its dense rows in shared memory)
+                    where = (rans_bnd_torch.dense_route(A, shift)
+                             if hasattr(rans_bnd_torch, "dense_route")
+                             else "shared")
+                    alph = (f" shift={shift} A={A} A1={A1} last0={last0} "
+                            f"tables in {where} memory")
                 log(f"launch shape in {self.what}: {name} B={B} T={T} W={W}"
                     f"{alph} t_real={t_real.tolist()} bound {b_ms:.4f} ms "
                     f"({by})")
@@ -1429,12 +1943,13 @@ def _merge_seconds(spans) -> float:
 
 
 def profile_run(src: str, work: str, lvl: str, out_dir: str,
-                decode: bool) -> None:
+                decode: bool, boundary: bool = False) -> None:
     """Encode src at lvl through the port's CLI (and, with decode, decode
-    the archive) under cProfile and torch.profiler, profiling the encode
-    or the decode; write both tables to out_dir and print the device's
-    busy time, its idle share, per-kernel device time and the host
-    functions that take the most time."""
+    the archive, through the boundary-table walks with boundary) under
+    cProfile and torch.profiler, profiling the encode or the decode;
+    write both tables to out_dir and print the device's busy time, its
+    idle share, per-kernel device time and the host functions that take
+    the most time."""
     import cProfile
     import io
     import pstats
@@ -1452,16 +1967,22 @@ def profile_run(src: str, work: str, lvl: str, out_dir: str,
     else:
         argv = ["-e", "cuda", lvl, src, comp]
     what = f"{lvl} {'decode' if decode else 'encode'}"
+    if boundary:
+        what += " FQZ5_DEC_V3"
+        os.environ["FQZ5_DEC_V3"] = "1"
     cp = cProfile.Profile()
-    with LaunchShapes(what):
-        t1 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as tp:
-            cp.enable()
-            run_cli(argv)
-            cp.disable()
-            torch.cuda.synchronize()
-        wall = time.monotonic() - t1
+    try:
+        with LaunchShapes(what):
+            t1 = time.monotonic()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as tp:
+                cp.enable()
+                run_cli(argv)
+                cp.disable()
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t1
+    finally:
+        os.environ.pop("FQZ5_DEC_V3", None)
     if decode:
         same(src, out)
         os.remove(out)
@@ -1500,7 +2021,8 @@ def profile_run(src: str, work: str, lvl: str, out_dir: str,
     os.remove(comp)
 
 
-def profile_main(np, torch, levels: str, out_dir: str, decode: bool) -> int:
+def profile_main(np, torch, levels: str, out_dir: str, decode: bool,
+                 boundary: bool) -> int:
     from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import _build
 
@@ -1512,7 +2034,9 @@ def profile_main(np, torch, levels: str, out_dir: str, decode: bool) -> int:
         src = os.path.join(work, "in.fastq")
         make_corpus(src, CORPUS_MB, np)
         for lvl in levels.split(","):
-            profile_run(src, work, lvl, os.path.join(out_dir, lvl), decode)
+            profile_run(src, work, lvl, os.path.join(
+                out_dir, lvl + ("-boundary" if boundary else "")), decode,
+                boundary)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -1526,7 +2050,11 @@ def main() -> int:
                     help="preset(s) of the profiled run, comma-separated")
     ap.add_argument("--decode", action="store_true",
                     help="with --profile: profile the decode of the "
-                    "preset's archive instead of the encode")
+                    "preset's archive instead of the encode; with "
+                    "--walk-times: time only the decode walks")
+    ap.add_argument("--boundary", action="store_true",
+                    help="with --profile --decode: decode through the "
+                    "boundary-table walks (FQZ5_DEC_V3=1)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
                     help="directory for the profile tables")
     ap.add_argument("--walk-times", action="store_true",
@@ -1535,7 +2063,13 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="with --walk-times or --profile: the checkout "
                     "whose fqzcomp5_tpu_torch is timed")
+    ap.add_argument("--cpu-encode", nargs=3, metavar=("LEVEL", "IN", "OUT"),
+                    help="only encode IN at LEVEL on the CPU (plain "
+                    "versions) to OUT; the e2e phase runs this beside the "
+                    "card's phases")
     opts = ap.parse_args()
+    if opts.cpu_encode:
+        return cpu_encode(*opts.cpu_encode)
 
     t0 = time.monotonic()
     import numpy as np
@@ -1559,11 +2093,12 @@ def main() -> int:
         from fqzcomp5_tpu_torch.ops import _build
         if opts.profile:
             log(f"profile of {os.path.dirname(_build.CSRC)}")
-            return profile_main(np, torch, opts.level, opts.out, opts.decode)
+            return profile_main(np, torch, opts.level, opts.out, opts.decode,
+                                opts.boundary)
         _build.lib()
         log(f"walk times of {os.path.dirname(_build.CSRC)} (nvcc "
             f"{_build.build_seconds:.3f} s)")
-        walk_times(np, torch, torch.device("cuda"))
+        walk_times(np, torch, torch.device("cuda"), opts.decode)
         return 0
     sys.path.insert(0, ROOT)
 
@@ -1584,62 +2119,69 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
     phase("build", t0)
 
-    t0 = time.monotonic()
-    dev = torch.device("cuda")
-    kres = kernels_vs_plain(np, torch, dev)
-    kres.update(bnd_kernels_vs_plain(np, torch, dev))
-    jax_signatures_vs_cpu(np, torch, dev)
-    decode_o1_edge_cases(np, torch, dev)
-    kres.update(adaptive_kernels_vs_plain(np, torch, dev))
-    walk_times(np, torch, dev)
-    phase("kernels", t0)
-
-    from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_bnd, rc_cuda
-    counted = {"encode_walk": rans_cuda.encode_walk,
-               "decode_o0": rans_cuda_dec.decode_o0,
-               "decode_o1": rans_cuda_dec.decode_o1,
-               "decode_bnd_o0": rans_cuda_bnd.decode_bnd_o0,
-               "decode_dense_o1": rans_cuda_bnd.decode_dense_o1,
-               "evolve_128": model_cuda.evolve_128,
-               "evolve_256": model_cuda.evolve_256,
-               "tiny_evolve": model_cuda.tiny_evolve,
-               "rc_encode_walk": rc_cuda.encode_walk}
-    batches = {"decode_o0": engine_cuda.decode_o0_batch,
-               "decode_o1": engine_cuda.decode_o1_batch}
-    launches = dict.fromkeys(counted, 0)
-
-    def reset():
-        for fn in counted.values():
-            fn.launches = 0
-        for fn in batches.values():
-            fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
-
-    def read(path, need, decoders):
-        """Counts of the path just run.  Every kernel in need must have
-        launched in it, and decoders[batch] wherever the decode handed
-        that batch function a batch."""
-        got = {name: fn.launches for name, fn in counted.items()}
-        calls = {name: fn.calls for name, fn in batches.items()}
-        need = [*need, *(k for b, k in decoders.items() if calls[b])]
-        tables = {f"{name} {k}": getattr(fn, k) for name, fn in
-                  batches.items() for k in ("s3_bytes", "bnd_bytes")}
-        log(f"kernel launches in the {path} run: {got}; decode batches "
-            f"{calls}; table uploads {tables} bytes")
-        missing = [k for k in need if got[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels of the {path} path never "
-                                 f"launched in its run: {missing}")
-        for k, v in got.items():
-            launches[k] += v
-        return sum(tables.values())
-
     work = tempfile.mkdtemp(prefix="fqz5_chip_smoke_")
+    cpu_jobs = []
     try:
         t0 = time.monotonic()
         src = os.path.join(work, "in.fastq")
         nbytes = make_corpus(src, CORPUS_MB, np)
         log(f"corpus: {nbytes} bytes, 150 bp reads ("
             f"{time.monotonic() - t0:.3f} s)")
+        # the CPU halves of the card-vs-CPU prefix encodes run in
+        # subprocesses beside the kernels, adaptive and e2e phases
+        cpu_jobs = start_cpu_encodes(src, work)
+
+        t0 = time.monotonic()
+        dev = torch.device("cuda")
+        kres = kernels_vs_plain(np, torch, dev)
+        kres.update(bnd_kernels_vs_plain(np, torch, dev))
+        jax_signatures_vs_cpu(np, torch, dev)
+        decode_o1_edge_cases(np, torch, dev)
+        dense_o0_edge_cases(np, torch, dev)
+        kres.update(adaptive_kernels_vs_plain(np, torch, dev))
+        walk_times(np, torch, dev)
+        phase("kernels", t0)
+
+        from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_bnd, rc_cuda
+        counted = {"encode_walk": rans_cuda.encode_walk,
+                   "decode_o0": rans_cuda_dec.decode_o0,
+                   "decode_o1": rans_cuda_dec.decode_o1,
+                   "decode_bnd_o0": rans_cuda_bnd.decode_bnd_o0,
+                   "decode_dense_o1": rans_cuda_bnd.decode_dense_o1,
+                   "evolve_128": model_cuda.evolve_128,
+                   "evolve_256": model_cuda.evolve_256,
+                   "tiny_evolve": model_cuda.tiny_evolve,
+                   "rc_encode_walk": rc_cuda.encode_walk}
+        batches = {"decode_o0": engine_cuda.decode_o0_batch,
+                   "decode_o1": engine_cuda.decode_o1_batch}
+        launches = dict.fromkeys(counted, 0)
+
+        def reset():
+            for fn in counted.values():
+                fn.launches = 0
+            for fn in batches.values():
+                fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
+
+        def read(path, need, decoders):
+            """Counts of the path just run.  Every kernel in need must have
+            launched in it, and decoders[batch] wherever the decode handed
+            that batch function a batch."""
+            got = {name: fn.launches for name, fn in counted.items()}
+            calls = {name: fn.calls for name, fn in batches.items()}
+            need = [*need, *(k for b, k in decoders.items() if calls[b])]
+            tables = {f"{name} {k}": getattr(fn, k) for name, fn in
+                      batches.items() for k in ("s3_bytes", "bnd_bytes")}
+            log(f"kernel launches in the {path} run: {got}; decode batches "
+                f"{calls}; table uploads {tables} bytes")
+            missing = [k for k in need if got[k] == 0]
+            if missing:
+                raise AssertionError(f"kernels of the {path} path never "
+                                     f"launched in its run: {missing}")
+            for k, v in got.items():
+                launches[k] += v
+            return sum(tables.values())
+
+        t0 = time.monotonic()
         adaptive_vs_host(src, dev)
         phase("adaptive", t0)
 
@@ -1655,7 +2197,8 @@ def main() -> int:
                                          "decode_o1": "decode_o1"})
             if lvl in BOUNDARY:
                 reset()
-                bnd_s = decode_boundary(src, comp, work)
+                with LaunchShapes(f"{lvl} FQZ5_DEC_V3 decode"):
+                    bnd_s = decode_boundary(src, comp, work)
                 bnd_bytes = read(f"{lvl} FQZ5_DEC_V3 decode", [BOUNDARY[lvl]],
                                  {"decode_o0": "decode_bnd_o0"})
                 log(f"decode {lvl}: s3-LUT walks {dec_s:.3f} s "
@@ -1668,11 +2211,18 @@ def main() -> int:
         if zero:
             raise AssertionError(f"kernels never launched on the main paths: "
                                  f"{zero}")
-        for lvl, mb in PREFIXES:
-            card_vs_cpu(src, work, lvl, mb)
+        for job in cpu_jobs:
+            card_vs_cpu(work, *job)
+        phase("e2e", t0)
+        t0 = time.monotonic()
+        corrupt_on_card(np, work)
+        phase("corrupt", t0)
     finally:
+        for *_, p in cpu_jobs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
         shutil.rmtree(work, ignore_errors=True)
-    phase("e2e", t0)
 
     dec = "fqzcomp5_tpu/ops/rans_pallas_dec.py"
     src_of = {"encode_walk": "csrc/rans_encode.cu",

@@ -1,5 +1,8 @@
 // What the 32-lane rANS 32x16 decode walks share (rans_decode.cu,
-// rans_decode_bnd.cu): one warp owns one stream, lane z its state z.
+// rans_decode_bnd.cu): the renormalisation bound, and the word feed of the
+// walk that still reads its words from global memory (decode_bnd_o0: one
+// warp owns one stream, lane z its state z).  The block walks feed from a
+// shared ring instead (rans_dec_walk.cuh).
 
 #pragma once
 

@@ -20,28 +20,32 @@
 //
 // The TPU kernels compared m with every entry, O(S) vector operations a
 // step and O(A^2) at order-1 with the context loop, because the TPU has no
-// per-lane gather.  Here one warp owns one stream and its table sits in
-// shared memory: at most 256 entries (1 KB) at order-0, A1*(A+1) entries
-// at order-1 (16.9 KB at A = 64, the engine's limit).  Each lane finds its
-// entry by a branch-free binary search over the boundary fields, which
-// are cumulative frequencies and so nondecreasing: ceil(log2(n+1))
-// dependent shared-memory loads.  Words come in by ballot/popc
-// (fqz5::feed_words, shared with rans_decode.cu).
+// per-lane gather.  At order-0 one warp owns one stream and its table sits
+// in shared memory (at most 256 entries, 1 KB); each lane finds its entry
+// by a branch-free binary search over the boundary fields, which are
+// cumulative frequencies and so nondecreasing: ceil(log2(S+1)) dependent
+// shared-memory loads, and words come in by ballot/popc from global memory
+// (fqz5::feed_words, rans_dec_common.cuh).  At order-1 one block owns one
+// stream, in the layout of rans_dec_walk.cuh, and its prologue turns the
+// dense rows into compact tables from which a step needs no search (see
+// decode_dense_o1_kernel).
 //
 // What bounds them on the H100: each lane's serial chain of dependent
-// steps, R -> search loads -> multiply -> word load -> R, once per symbol.
-// The bytes (one symbol byte out, at most two word bytes in) and integer
+// steps, R -> table loads -> multiply -> word -> R, once per symbol.  The
+// bytes (one symbol byte out, at most two word bytes in) and integer
 // operations of a step are far below the card's rates.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "rans_dec_common.cuh"
+#include "rans_dec_walk.cuh"
 
 namespace {
 
+using namespace fqz5;
+
 constexpr int kMaxO0Entries = 256;
-constexpr size_t kStaticSmem = 48 * 1024;
 
 // Largest power of two <= n (1 for n < 2).
 __host__ __device__ inline int top_pow2(int n) {
@@ -117,48 +121,153 @@ __global__ void decode_bnd_o0_kernel(const uint16_t* __restrict__ words,
     if (lane == 0) ptrf[b] = (int32_t)ptr;
 }
 
-template <bool kPacked>
-__global__ void decode_dense_o1_kernel(const uint16_t* __restrict__ words,
-                                       long long W,
-                                       const uint32_t* __restrict__ R0,
-                                       const uint32_t* __restrict__ tab,
-                                       int A, int A1, int last0,
-                                       const int32_t* __restrict__ t_real,
-                                       int T, int shift,
-                                       uint8_t* __restrict__ syms,
-                                       uint32_t* __restrict__ Rf,
-                                       int32_t* __restrict__ ptrf) {
-    extern __shared__ uint32_t ent[];
-    const int b = blockIdx.x;
-    const int lane = threadIdx.x;
-    const int stride = A + 1;
-    const int n = A1 * stride;
-    for (int k = lane; k < n; k += 32) ent[k] = tab[(long long)b * n + k];
-    __syncwarp();
+// ---------------------------------------------------------------------
+// Order-1 dense tables: one block per stream.
+//
+// All 12 warps first build the stream's compact tables from its dense rows
+// (build_o1_dense_tables' A1 rows of A + 1 entries: entry 0 the row's
+// symbol-0 base, entry 1 + j boundary j, the cumulative frequency through
+// symbol j).  n1 = A + 1 rows: the A1 rows of the table and, when A1 = A,
+// row A, a context with no row.  Per row r a u8 slot table gives for each
+// slot m < tot the entry c the walk selects, the last entry whose boundary
+// is at most m (0 where none is), filled as runs: entry c over [its
+// boundary, the least boundary after it), with 0 from slot 0 and tot
+// after the last.  The runs cover every slot once whatever the table, so
+// no slot keeps a stale byte; where the boundaries rise along the row, as
+// build_o1_dense_tables makes them, c is also the count of boundaries at
+// most m, the plain walk's counter-form symbol.  A 32-bit word per
+// (r, c) holds the entry's F << 14 | C (F the 18-bit field the JAX
+// kernels' int32 shift gives in the counter form, and the base entry's C
+// is 0 there).  The row with no row has slot code 0 and word 0 throughout:
+// symbol 0 with F = C = 0, as the Pallas kernel's context loop decodes a
+// lane whose last symbol has no row.
+//
+// The word does not carry the symbol (8 + 13 + 12 bits do not fit), and
+// needs not: in every table build_o1_dense_tables makes, the tag of
+// packed entry c is c mod 64 (the base's is 0), and the counter form's
+// symbol is c by definition.  So the slot's code c gives the word's
+// column, the symbol and, masked to 6 bits in the packed form, the next
+// context: a step is one u8 and one u32 shared load and a multiply-add,
+// with no search.  The entry whose boundary is tot (c = A) is never
+// selected in a row that sums to tot.
+//
+// The tables take 4 * n1 * n1 + n1 * tot bytes; where they do not fit the
+// block's shared memory (at shift 12 from A = 51, at shift 10 from
+// A = 140), the same walk reads them from the stream's scratch in global
+// memory.  The route is chosen per launch from A and shift, before the
+// walk; nothing is retried.  Symbols leave as dense indices, and the rows
+// past t_real hold symbol 0.
+constexpr int kDenseThreads = 384;
 
-    constexpr uint32_t cmask = kPacked ? 0x1FFFu : 0x3FFFu;
-    const int top = top_pow2(A);
-    const uint32_t mask = (1u << shift) - 1u;
-    const uint16_t* w = words + (long long)b * W;
-    uint8_t* out = syms + (long long)b * T * 32;
-    const uint32_t lt_mask = (1u << lane) - 1u;
-    const int tr = max(0, min(t_real[b], T));
-    uint32_t R = R0[b * 32 + lane];
-    uint32_t last = (uint32_t)last0;
-    long long ptr = 0;
-    for (int t = 0; t < tr; ++t) {
+__host__ __device__ inline long long dense_table_bytes(int A, int shift) {
+    const long long n1 = A + 1;
+    return 4 * n1 * n1 + (n1 << shift);
+}
+
+template <bool SHARED>
+struct DenseStep {
+    uint32_t slot, wt;                    // shared addresses
+    const uint8_t* gslot;                 // or global tables
+    const uint32_t* gwt;
+    uint32_t n1, shift, mask, cmask;
+    uint32_t cbase, wrow, ctx;            // wrow: bytes (shared), words
+
+    __device__ __forceinline__ uint32_t operator()(uint32_t R) {
         const uint32_t m = R & mask;
-        uint32_t sym = 0, F = 0, C = 0;
-        if (last < (uint32_t)A1) {
-            const uint32_t* row = ent + last * stride;
-            const int c = count_le(row + 1, A, top, cmask, m);
-            unpack<kPacked>(row[c], c, sym, F, C);
+        uint32_t c, P;
+        if (SHARED) {
+            c = lds_u8(slot + cbase + m);
+            P = lds_u32(wt + wrow + 4 * c);
+        } else {
+            c = gslot[cbase + m];
+            P = gwt[wrow + c];
         }
-        R = fqz5::feed_words(F * (R >> shift) + (m - C), w, W, ptr, lt_mask);
-        last = sym;
-        out[(long long)t * 32 + lane] = (uint8_t)sym;
+        ctx = c & cmask;
+        cbase = ctx << shift;
+        wrow = (SHARED ? 4 : 1) * ctx * n1;
+        return (uint32_t)((int32_t)P >> 14) * (R >> shift) + m - (P & 0x3FFFu);
     }
-    for (int t = tr; t < T; ++t) out[(long long)t * 32 + lane] = 0;
+};
+
+__global__ void __launch_bounds__(kDenseThreads)
+decode_dense_o1_kernel(const uint16_t* __restrict__ words, long long W,
+                       const uint32_t* __restrict__ R0,
+                       const uint32_t* __restrict__ tab, int A, int A1,
+                       int last0, const int32_t* __restrict__ t_real, int T,
+                       int shift, uint8_t* __restrict__ syms,
+                       uint32_t* __restrict__ Rf, int32_t* __restrict__ ptrf,
+                       int route, uint8_t* scratch,
+                       long long scratch_stride) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    O1Head& h = *reinterpret_cast<O1Head*>(smem);
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const uint32_t tot = 1u << shift;
+    const uint32_t n1 = A + 1;
+    const bool packed = A <= 64;
+    const uint32_t bmask = packed ? 0x1FFFu : 0x3FFFu;   // boundary field
+    const uint32_t* E = tab + (size_t)b * A1 * n1;
+    unsigned char* t = route == kRouteShared
+                           ? smem + kHeadBytes
+                           : scratch + (size_t)b * scratch_stride;
+    uint32_t* wt = reinterpret_cast<uint32_t*>(t);
+    uint8_t* slot = t + 4 * (size_t)n1 * n1;
+    if (tid == 0) head_init(h);
+
+    // prologue: the words, then the slot runs, one warp a run
+    for (uint32_t i = tid; i < n1 * n1; i += kDenseThreads) {
+        const uint32_t c = i % n1;
+        uint32_t v = 0;
+        if (i / n1 < (uint32_t)A1) {
+            const uint32_t P = __ldg(E + i);
+            v = packed ? ((P >> 13) & 0x1FFFu) << 14 | (P & 0x1FFFu)
+                       : c ? P : P & ~0x3FFFu;
+        }
+        wt[i] = v;
+    }
+    for (uint32_t run = warp; run < (uint32_t)A1 * n1;
+         run += kDenseThreads / 32) {
+        const uint32_t r = run / n1, c = run % n1;
+        const uint32_t lo = c ? min(__ldg(E + run) & bmask, tot) : 0u;
+        uint32_t hi = tot;
+        for (uint32_t j = c + 1 + lane; j <= (uint32_t)A; j += 32)
+            hi = min(hi, __ldg(E + r * n1 + j) & bmask);
+        hi = __reduce_min_sync(0xFFFFFFFFu, hi);
+        for (uint32_t m = lo + lane; m < hi; m += 32)
+            slot[r * tot + m] = (uint8_t)c;
+    }
+    if (A1 == A)
+        for (uint32_t m = tid; m < tot; m += kDenseThreads)
+            slot[(uint32_t)A * tot + m] = 0;
+    __syncthreads();
+
+    const int tr = max(0, min(t_real[b], T));
+    const uint16_t* w = words + (size_t)b * W;
+    const uint32_t off = row_off(w);
+    if (feed_or_write<false>(h, warp, w, (uint32_t)W, off,
+                             syms + (size_t)b * T * 32, tr, T, lane))
+        return;
+
+    uint32_t R = R0[b * 32 + lane];
+    uint32_t ptr = 0;
+    const uint32_t lastw = w[W - 1];
+    const uint32_t cmask = packed ? 63u : 255u;
+    const uint32_t ctx = (uint32_t)last0;
+    if (route == kRouteShared) {
+        DenseStep<true> st{smem_addr(slot), smem_addr(wt), nullptr, nullptr,
+                           n1, (uint32_t)shift, tot - 1u, cmask,
+                           ctx << shift, 4 * ctx * n1, ctx};
+        o1_walk(h, st, R, ptr, tr, (uint32_t)W, off, lastw, lane);
+    } else {
+        DenseStep<false> st{0, 0, slot, wt, n1, (uint32_t)shift, tot - 1u,
+                            cmask, ctx << shift, ctx * n1, ctx};
+        o1_walk(h, st, R, ptr, tr, (uint32_t)W, off, lastw, lane);
+    }
+    h.stop = 1;
+    h.last[lane] = 0;
+    pair_sync();
     Rf[b * 32 + lane] = R;
     if (lane == 0) ptrf[b] = (int32_t)ptr;
 }
@@ -187,19 +296,28 @@ extern "C" int fqz5_rans_decode_dense_o1(const uint16_t* words, long long W,
                                          int last0, const int32_t* t_real,
                                          int B, int T, int shift,
                                          uint8_t* syms, uint32_t* Rf,
-                                         int32_t* ptrf, void* stream) {
-    // one warp a block, so a block's shared memory is one stream's table;
-    // above the static 48 KB it must be asked for
-    const size_t smem = (size_t)A1 * (A + 1) * sizeof(uint32_t);
-    auto kern = A <= 64 ? decode_dense_o1_kernel<true>
-                        : decode_dense_o1_kernel<false>;
-    if (smem > kStaticSmem) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kern<<<B, 32, smem, (cudaStream_t)stream>>>(words, W, R0, tab, A, A1,
-                                                last0, t_real, T, shift, syms,
-                                                Rf, ptrf);
+                                         int32_t* ptrf, uint8_t* scratch,
+                                         long long scratch_stride,
+                                         void* stream) {
+    if (B <= 0) return 0;
+    if (W < 1 || W > INT_MAX || (long long)T * 32 > INT_MAX || A < 1 ||
+        A > 255 || (A1 != A && A1 != A + 1) || last0 < 0 || last0 >= A1 ||
+        shift < 1 || shift > 12)
+        return (int)cudaErrorInvalidValue;
+    // the tables in shared memory where they fit, else in the scratch the
+    // caller gives (dense_table_bytes a stream, 16-byte aligned rows)
+    const long long need = dense_table_bytes(A, shift);
+    const int route = need <= kTableBytes ? kRouteShared : kRouteGlobal;
+    if (route == kRouteGlobal &&
+        (scratch == nullptr || scratch_stride < need || scratch_stride % 16))
+        return (int)cudaErrorInvalidValue;
+    const int smem = kHeadBytes + (route == kRouteShared ? (int)need : 0);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        decode_dense_o1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (attr != cudaSuccess) return (int)attr;
+    decode_dense_o1_kernel<<<B, kDenseThreads, smem, (cudaStream_t)stream>>>(
+        words, W, R0, tab, A, A1, last0, t_real, T, shift, syms, Rf, ptrf,
+        route, scratch, scratch_stride);
     return (int)cudaGetLastError();
 }

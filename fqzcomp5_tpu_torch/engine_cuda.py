@@ -42,6 +42,7 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 
 _NOP_O1 = 256 * 256    # sentinel flat index (order-1 tables: 65537 rows)
+MAX_WALK_BYTES = (1 << 31) - 1   # a decode walk's stream: T * 32 in an int
 
 
 def _lib():
@@ -332,9 +333,14 @@ def _word_rows(bodies) -> tuple[np.ndarray, np.ndarray]:
     return R0, words
 
 
-def _check_tables(tables: str) -> None:
+def _check_tables(tables: str, out_szs: list[int]) -> None:
     if tables not in ("lut", "boundary"):
         raise ValueError(f"unknown decode tables {tables!r}")
+    # the walks count a stream's symbols in 31 bits; a larger size comes
+    # only from a corrupt archive
+    if out_szs and max(out_szs) > MAX_WALK_BYTES:
+        raise ValueError(f"decode: a {max(out_szs)}-byte rANS stream is "
+                         f"beyond the walks' {MAX_WALK_BYTES} bytes")
 
 
 def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
@@ -346,7 +352,7 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     decodes the <32-byte remainders on the host (from the s3 LUTs).
     decode_o0_batch.calls counts the batches that reach a walk, .s3_bytes
     and .bnd_bytes the table bytes each form uploads."""
-    _check_tables(tables)
+    _check_tables(tables, out_szs)
     L = _lib()
     B = len(payloads)
     if B == 0:
@@ -403,7 +409,7 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
     a "boundary" group whose alphabet has 1 to 64 symbols uploads dense
     tables (4*A1*(A+1) bytes per stream, counted in .bnd_bytes), and a
     wider one its s3 tables."""
-    _check_tables(tables)
+    _check_tables(tables, out_szs)
     L = _lib()
     B = len(payloads)
     if B == 0:

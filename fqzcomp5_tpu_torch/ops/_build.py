@@ -105,7 +105,8 @@ def _register(L: ctypes.CDLL) -> None:
         vp, i64, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     L.fqz5_rans_decode_dense_o1.restype = i32
     L.fqz5_rans_decode_dense_o1.argtypes = [
-        vp, i64, vp, vp, i32, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp]
+        vp, i64, vp, vp, i32, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp,
+        i64, vp]
     L.fqz5_evolve.restype = i32
     L.fqz5_evolve.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp, vp]
     L.fqz5_tiny_evolve.restype = i32

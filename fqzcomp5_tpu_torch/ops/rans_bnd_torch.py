@@ -15,6 +15,10 @@ The numpy builders are copies of the JAX package's
 streams and contexts at once.  ``freqs_from_s3`` recovers the frequency
 tables from the native dec prep's s3 LUTs as the JAX engine does.
 
+``dense_compact_tables`` and ``decode_dense_compact`` mirror, in numpy,
+the compact tables that csrc/rans_decode_bnd.cu's dense order-1 kernel
+builds on the card from the dense rows, and its walk over them.
+
 The plain versions ``decode_bnd_o0_ref`` and ``decode_dense_o1_ref`` walk
 compact per-stream layouts (one row of 32 lane states per stream) and
 follow the Pallas kernels step for step: the selected entry is the last
@@ -31,7 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fqzcomp5_tpu_torch.ops.rans_torch import (M32, N, RANS_L, TF_SHIFT,
+from fqzcomp5_tpu_torch.ops.rans_torch import (M32, N, O1_TABLE_BYTES,
+                                               RANS_L, TF_SHIFT, _ring_feed,
                                                _word_feed, as_i32, u32)
 
 S_SLOTS = 4          # streams per 128-lane row in the JAX layouts
@@ -264,3 +269,87 @@ def decode_dense_o1_ref(words: torch.Tensor, R0: torch.Tensor,
         return sym, F, C
 
     return _walk(words, R0, t_real, T, shift, step)
+
+
+# ---------------------------------------------------------------------
+# numpy mirror of the dense order-1 decode kernel's compact tables and walk
+
+def dense_table_bytes(A: int, shift: int) -> int:
+    """Bytes of one stream's compact dense tables: a u32 word per (row,
+    entry) and a u8 slot code per (row, slot), A + 1 rows."""
+    return 4 * (A + 1) ** 2 + ((A + 1) << shift)
+
+
+def dense_route(A: int, shift: int) -> str:
+    """Where the kernel keeps a stream's compact tables: "shared" when
+    they fit the block's shared memory beside its head, else "global"."""
+    return "shared" if dense_table_bytes(A, shift) <= O1_TABLE_BYTES \
+        else "global"
+
+
+def dense_compact_tables(tab_row: np.ndarray, A: int, A1: int, shift: int):
+    """The compact tables csrc/rans_decode_bnd.cu's decode_dense_o1
+    prologue builds from one stream's dense rows (A1 * (A+1) int32
+    entries of build_o1_dense_tables): (slot (A+1, tot) uint8, the entry
+    each slot selects, the last whose boundary is at most the slot,
+    filled as runs from each entry's boundary to the least boundary
+    after it; words (A+1, A+1) uint32, entry c's F << 14 | C).  Row A,
+    when A1 = A, is the context with no row: codes and words 0.  The
+    runs cover every slot once whatever the boundaries; where they rise,
+    as build_o1_dense_tables makes them, a slot's entry is also the count
+    of boundaries at most the slot."""
+    tot = 1 << shift
+    n1 = A + 1
+    packed = A <= DENSE_MAX_A
+    E = np.zeros((n1, n1), np.int64)
+    E[:A1] = np.asarray(tab_row).view(np.uint32).reshape(A1, n1)
+    if packed:
+        words = ((E >> 13) & 0x1FFF) << 14 | (E & 0x1FFF)
+    else:
+        words = E.copy()
+        words[:, 0] &= ~0x3FFF
+    words[A1:] = 0
+    bnd = np.minimum(E[:, 1:] & (0x1FFF if packed else 0x3FFF), tot)
+    lo = np.concatenate([np.zeros((n1, 1), np.int64), bnd], 1)
+    after = np.minimum.accumulate(bnd[:, ::-1], axis=1)[:, ::-1]
+    hi = np.concatenate([after, np.full((n1, 1), tot)], 1)
+    slot = np.zeros((n1, tot), np.uint8)
+    for r in range(A1):
+        for c in range(n1):
+            slot[r, lo[r, c]:hi[r, c]] = c
+    return slot, (words & M32).astype(np.uint32)
+
+
+def decode_dense_compact(words, R0, tab, t_real, T: int, shift: int,
+                         A: int, A1: int, last0: int):
+    """decode_dense_o1_ref as the kernel steps it over
+    dense_compact_tables, in numpy: a slot's code c is the entry, the
+    symbol and (masked to 6 bits in the packed form) the next context.
+    The same arguments and results as decode_dense_o1_ref, as numpy
+    arrays (syms (B, T, 32) uint8, Rf (B, 32) uint32, ptrf (B,) int32)."""
+    words = np.asarray(words).view(np.uint16).astype(np.int64)
+    R0 = np.asarray(R0).view(np.uint32).astype(np.int64)
+    tab = np.asarray(tab)
+    B = words.shape[0]
+    mask = (1 << shift) - 1
+    cmask = 63 if A <= DENSE_MAX_A else 255
+    syms = np.zeros((B, T, N), np.uint8)
+    Rf = np.empty((B, N), np.uint32)
+    ptrf = np.empty(B, np.int32)
+    for b in range(B):
+        slot, wt = dense_compact_tables(tab[b], A, A1, shift)
+        wt = wt.view(np.int32).astype(np.int64)
+        R = R0[b].copy()
+        ctx = np.full(N, last0, np.int64)
+        ptr = 0
+        for t in range(max(0, min(int(t_real[b]), T))):
+            m = R & mask
+            c = slot[ctx, m].astype(np.int64)
+            P = wt[ctx, c]
+            ctx = c & cmask
+            Rn = ((P >> 14) * (R >> shift) + m - (P & 0x3FFF)) & M32
+            R, ptr = _ring_feed(Rn, words[b], ptr)
+            syms[b, t] = ctx
+        Rf[b] = R
+        ptrf[b] = ptr
+    return syms, Rf, ptrf

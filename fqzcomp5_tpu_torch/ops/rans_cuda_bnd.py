@@ -16,9 +16,6 @@ from fqzcomp5_tpu_torch.ops import _build, rans_bnd_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 from fqzcomp5_tpu_torch.ops.rans_torch import TF_SHIFT
 
-# a block's shared memory on the H100 (one warp, one stream's table)
-_SMEM_MAX = 232_448
-
 
 def _common(words, R0, t_real, T, shift):
     B, W = words.shape
@@ -70,29 +67,35 @@ def decode_dense_o1(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                     A1: int, last0: int):
     """Order-1 dense-table decode walk; see
     rans_bnd_torch.decode_dense_o1_ref for the arguments and the (syms,
-    Rf, ptrf) results.  On the card a stream's table must fit one
-    block's shared memory (A up to 240)."""
+    Rf, ptrf) results.  On the card A is at most 255; a stream's compact
+    tables (rans_bnd_torch.dense_compact_tables) sit in the block's shared
+    memory where they fit, else in a scratch allocated here.  The kernel
+    stays in bounds for any table.  It equals the plain walk on every
+    table build_o1_dense_tables makes (packed entry c tagged c mod 64):
+    in the packed form whatever order the boundaries are in, in the
+    counter form where they rise along each row."""
     if words.device.type == "cpu":
         return rans_bnd_torch.decode_dense_o1_ref(
             words, R0, tab, t_real, T, shift, A, A1, last0)
     if words.device.type != "cuda":
         raise ValueError(f"decode_dense_o1: no kernel for {words.device}")
     B, W, dev, syms, Rf, ptrf = _common(words, R0, t_real, T, shift)
-    n = A1 * (A + 1)
-    _check("tab", tab, (torch.int32,), (B, n), dev)
-    if A < 1 or A1 not in (A, A + 1) or not 0 <= last0 < A1:
+    _check("tab", tab, (torch.int32,), (B, A1 * (A + 1)), dev)
+    if not 1 <= A <= 255 or A1 not in (A, A + 1) or not 0 <= last0 < A1:
         raise ValueError(f"decode_dense_o1: bad alphabet A={A} A1={A1} "
                          f"last0={last0}")
-    if 4 * n > _SMEM_MAX:
-        raise ValueError(f"decode_dense_o1: a {4 * n}-byte table does not "
-                         "fit a block's shared memory")
+    stride, scratch = 0, None
+    if rans_bnd_torch.dense_route(A, shift) == "global":
+        stride = -(-rans_bnd_torch.dense_table_bytes(A, shift) // 16) * 16
+        scratch = torch.empty((B, stride), dtype=torch.uint8, device=dev)
     L = _build.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = L.fqz5_rans_decode_dense_o1(
             words.data_ptr(), W, R0.data_ptr(), tab.data_ptr(), A, A1,
             last0, t_real.data_ptr(), B, T, shift, syms.data_ptr(),
-            Rf.data_ptr(), ptrf.data_ptr(), stream)
+            Rf.data_ptr(), ptrf.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stride, stream)
     _build.check(rc, "decode_dense_o1")
     decode_dense_o1.launches += 1
     return syms, Rf, ptrf

@@ -37,6 +37,8 @@ def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
         raise ValueError(f"decode_o0: no kernel for {words.device}")
     B, W, dev = _check_common(words, R0, s3, t_real,
                               1 << rans_torch.TF_SHIFT)
+    if s3.data_ptr() % 16:
+        s3 = s3.clone()  # the kernel reads s3 rows 16 bytes at a time
     syms = torch.empty((B, T, 32), dtype=torch.uint8, device=dev)
     Rf = torch.empty((B, 32), dtype=torch.int32, device=dev)
     L = _build.lib()

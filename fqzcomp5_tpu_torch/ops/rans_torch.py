@@ -318,7 +318,46 @@ def decode_o1_ref(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
 
 
 # ---------------------------------------------------------------------
-# numpy mirror of the order-1 decode kernel's compact tables and walk
+# numpy mirrors of the decode kernels' walks (csrc/rans_decode.cu)
+
+def _ring_feed(Rn, words_b, ptr: int):
+    """The kernels' ring feed of one stream's 32 lanes (numpy int64): the
+    renormalising lanes take the next words in lane order, reads past the
+    row take its last word.  Returns (R, ptr)."""
+    need = Rn < RANS_L
+    i = ptr + np.cumsum(need) - 1
+    v = words_b[np.minimum(i, len(words_b) - 1)]
+    return (np.where(need, ((Rn << 16) | v) & M32, Rn),
+            ptr + int(need.sum()))
+
+
+def decode_o0_staged(words, R0, s3, t_real, T: int):
+    """The order-0 decode walk as the kernel steps it, in numpy: the s3
+    LUT (shift 12), the ring feed, and the rows past t_real (each lane's
+    h.last) the symbol of the frozen state.  The same arguments and
+    results as decode_o0_ref, as numpy arrays (syms (B, T, 32) uint8,
+    Rf (B, 32) uint32)."""
+    words = np.asarray(words).view(np.uint16).astype(np.int64)
+    R0 = np.asarray(R0).view(np.uint32).astype(np.int64)
+    s3 = np.asarray(s3).view(np.uint32).astype(np.int64)
+    B = words.shape[0]
+    syms = np.empty((B, T, N), np.uint8)
+    Rf = np.empty((B, N), np.uint32)
+    for b in range(B):
+        R = R0[b].copy()
+        ptr = 0
+        tr = max(0, min(int(t_real[b]), T))
+        for t in range(tr):
+            S = s3[b, R & MASK12]
+            F = S >> (TF_SHIFT + 8)
+            F = np.where(F == 0, 1 << TF_SHIFT, F)
+            Rn = (F * (R >> TF_SHIFT) + ((S >> 8) & MASK12)) & M32
+            R, ptr = _ring_feed(Rn, words[b], ptr)
+            syms[b, t] = S & 0xFF
+        syms[b, tr:] = s3[b, R & MASK12] & 0xFF
+        Rf[b] = R
+    return syms, Rf
+
 
 def o1_compact_tables(s3_row: np.ndarray, shift: int):
     """The compact tables csrc/rans_decode.cu's order-1 prologue builds
@@ -362,7 +401,7 @@ def decode_o1_compact(words, R0, s3, t_real, T: int, shift: int):
     words = np.asarray(words).view(np.uint16).astype(np.int64)
     R0 = np.asarray(R0).view(np.uint32).astype(np.int64)
     s3 = np.asarray(s3).view(np.uint32)
-    B, W = words.shape
+    B = words.shape[0]
     tot = 1 << shift
     mask = tot - 1
     syms = np.empty((B, T, N), np.uint8)
@@ -390,13 +429,7 @@ def decode_o1_compact(words, R0, s3, t_real, T: int, shift: int):
                 ctx = np.where(code == A, 0, code)
                 start = np.where(P & O1_ZERO_FLAG, m, P & 0xFFF)
                 Rn = ((P >> 16) * (R >> shift) + m - start) & M32
-            # the ring feed: lane order, reads past the row take its last
-            need = Rn < RANS_L
-            i = ptr + np.cumsum(need) - 1
-            v = words[b, np.minimum(i, W - 1)]
-            Rn = np.where(need, ((Rn << 16) | v) & M32, Rn)
-            ptr += int(need.sum())
-            R = Rn
+            R, ptr = _ring_feed(Rn, words[b], ptr)
             syms[b, t] = ctx if route == "s3" else alpha[ctx]
         last = ctx if route == "s3" else alpha[ctx]
         syms[b, tr:] = last
