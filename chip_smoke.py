@@ -30,7 +30,13 @@ Phases, each printed with its time; any failure exits non-zero:
      one 0, with word rows cut short and with the boundaries of half its
      rows out of order; and tables built from s3 LUTs
      as the engine builds them); the order-0 walk on four streams with
-     ragged lengths and rows cut short, and at B = 200.  Model evolution:
+     ragged lengths and rows cut short, and at B = 200.  The order-0
+     boundary walk on tests/test_torch_bnd_o0_walk.py's cases
+     (BND_O0_CASES: packed S = 16 and 64, counter S = 16 and 256, shift
+     10 and 12; each round-tripped, with ragged lengths and one 0, with
+     rows cut short and with tables no encoder makes: rows below tot,
+     boundaries out of order, inconsistent F fields, random entries, f0 =
+     0 and tot), and at B = 200 with packed and counter tables.  Model evolution:
      65,536 contexts x 4,096 occurrences at 128 slots, 4 x 4,096 at 256
      slots, 2^20 TinyModels x 256; at 128 slots, in both layouts, a
      ladder of runs that moves symbols across every lane boundary, zipf
@@ -175,8 +181,8 @@ WALK_TINY = ((2, 318_825, 4), (16, 262_144, 4), (64, 65_536, 4),
 # symbols
 WALK_EVOLVE_256 = (("run-length", 2, 187_545), ("uniform", 1, 100_000))
 # integer operations per walked step, counted from each walk's arithmetic
-# (a lower count: index math and loop control are left out); the boundary
-# searches add two per binary-search level
+# (a lower count: index math and loop control are left out), the work of
+# the function whatever implements it
 OPS_PER_STEP = {"encode_walk": 8, "decode_o0": 7, "decode_o1": 7,
                 "decode_bnd_o0": 7, "decode_dense_o1": 8, "evolve_128": 10,
                 "evolve_256": 10, "tiny_evolve": 6, "rc_encode_walk": 12}
@@ -325,6 +331,83 @@ def o0_case(np, rng, T: int = EDGE_T):
         nsym=torch.full((len(plane),), T * 32, dtype=torch.int32))
     s3 = rans_torch.build_s3(freqs, 12).view(np.int32)
     return _compact_rows(w, nw, np), Rf.numpy(), s3, plane
+
+
+# the order-0 boundary walk's edge cases (shift, S, packed): the packed
+# buckets 16 and 64 at both shifts, the counter form at S = 16 (the v2
+# walk's tables) and at S = 256 (-1's) at both shifts
+BND_O0_CASES = ((10, 16, True), (12, 16, True), (10, 64, True),
+                (12, 64, True), (12, 16, False), (10, 256, False),
+                (12, 256, False))
+# the tables each case is also walked with (bnd_o0_variants), none of
+# them a round trip
+BND_O0_VARIANTS = ("rows below tot", "boundaries out of order",
+                   "F inconsistent", "random entries", "f0 = 0",
+                   "f0 = tot")
+
+
+def bnd_o0_case(np, rng, S: int, shift: int, packed: bool, B: int = 4,
+                T: int = EDGE_T):
+    """B order-0 streams of T steps a lane over symbols below S, encoded
+    by the plain walk at `shift`: random-walk qualities, a single symbol
+    0 (f0 = tot), uniform symbols 1..S-1 (f0 = 0) and uniform 0..S-1.
+    Returns (words, R0, tab (B, S) int32 of build_dec_tables_p (packed)
+    or build_dec_tables, f0 (B,) int32, plane (B, T, 32) uint8, freqs
+    (B, 256))."""
+    import torch
+    from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_torch
+
+    kinds = [(np.cumsum(rng.integers(-2, 3, (T, 32)), 0) % (S - 1)) + 1,
+             np.zeros((T, 32)), rng.integers(1, S, (T, 32)),
+             rng.integers(0, S, (T, 32))]
+    plane = np.stack([kinds[b % 4] for b in range(B)]).astype(np.uint8)
+    freqs = _normalise(np.stack([np.bincount(p.reshape(-1), minlength=256)
+                                 for p in plane]), shift, np)
+    Rf, w, nw = rans_torch.encode_walk_ref(
+        torch.from_numpy(plane), rans_torch.tables_from_numpy(
+            freqs, "freqs", shift=shift), shift,
+        nsym=torch.full((B,), T * 32, dtype=torch.int32))
+    build = (rans_bnd_torch.build_dec_tables_p if packed
+             else rans_bnd_torch.build_dec_tables)
+    return (_compact_rows(w, nw, np), Rf.numpy(), build(freqs, shift, S),
+            freqs[:, 0].astype(np.int32), plane, freqs)
+
+
+def bnd_o0_variants(np, rng, freqs, tab, S: int, shift: int, packed: bool):
+    """Tables of bnd_o0_case's streams that no encoder makes, (label, tab,
+    f0) for each of BND_O0_VARIANTS: rows summing to about half of tot
+    (every boundary at most m in the upper half of the slots); the
+    boundary fields shuffled within each row; random F fields (in the
+    counter form 18 bits with the sign bit, so the int32 shift gives F
+    past 2^31); random entries and f0 (boundaries past tot, C past m by up
+    to 14 bits); and f0 = 0 and f0 = tot on the true tables."""
+    from fqzcomp5_tpu_torch.ops import rans_bnd_torch
+
+    tot = 1 << shift
+    build = (rans_bnd_torch.build_dec_tables_p if packed
+             else rans_bnd_torch.build_dec_tables)
+    bmask = np.uint32(0x1FFF if packed else 0x3FFF)
+    fshift = 13 if packed else 14
+    E = np.asarray(tab).view(np.uint32)
+    f0 = freqs[:, 0].astype(np.int32)
+    half = freqs // 2
+    out = [("rows below tot", build(half, shift, S),
+            half[:, 0].astype(np.int32))]
+    mixed = E.copy()
+    for row in mixed:
+        row[:] = (row & ~bmask) | rng.permutation(row & bmask)
+    out.append(("boundaries out of order", mixed.view(np.int32), f0))
+    fmask = np.uint32(((1 << (13 if packed else 18)) - 1) << fshift)
+    fr = rng.integers(0, 1 << 32, E.shape, dtype=np.uint64).astype(np.uint32)
+    out.append(("F inconsistent",
+                ((E & ~fmask) | (fr & fmask)).view(np.int32), f0))
+    out.append(("random entries",
+                rng.integers(0, 1 << 32, E.shape, dtype=np.uint64)
+                .astype(np.uint32).view(np.int32),
+                rng.integers(0, tot + 1, len(E)).astype(np.int32)))
+    out.append(("f0 = 0", tab, np.zeros_like(f0)))
+    out.append(("f0 = tot", tab, np.full_like(f0, tot)))
+    return out
 
 
 def _straddle_streams(rng, np, B: int, T: int, a: int, b: int):
@@ -1106,6 +1189,75 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
           rans_torch.decode_o0_ref(*args))
 
 
+def bnd_o0_edge_cases(np, torch, dev) -> None:
+    """decode_bnd_o0 against decode_bnd_o0_ref, zero tolerance, on
+    tests/test_torch_bnd_o0_walk.py's cases (bnd_o0_case, BND_O0_CASES,
+    bnd_o0_variants): each case round-trips (a single-symbol stream, f0 =
+    tot, among them), then runs with ragged lengths (one 0), with its word
+    rows cut to a quarter and with each table of BND_O0_VARIANTS (rows
+    below tot, boundaries out of order, inconsistent F fields, random
+    entries, f0 = 0 and tot); then at B = 200 (more streams than SMs:
+    several blocks share an SM) with packed and counter tables as the
+    engine builds them, round-tripping."""
+    from fqzcomp5_tpu_torch.ops import (rans_bnd_torch, rans_cuda_bnd,
+                                        rans_torch)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    T = EDGE_T
+    full = np.full(4, T, np.int32)
+    ragged = np.array([T, 17, 0, T - 1], np.int32)
+    for shift, S, packed in BND_O0_CASES:
+        rng = np.random.default_rng(1000 * shift + S + packed)
+        words, R0, tab, f0, plane, freqs = bnd_o0_case(np, rng, S, shift,
+                                                        packed)
+        runs = [("round-trips", words, tab, f0, full),
+                ("ragged, one empty", words, tab, f0, ragged),
+                ("rows cut short", words[:, :max(1, words.shape[1] // 4)],
+                 tab, f0, full)]
+        runs += [(what, words, t, f, full) for what, t, f in
+                 bnd_o0_variants(np, rng, freqs, tab, S, shift, packed)]
+        for what, w, t, f, tr in runs:
+            args = (put(w), put(R0), put(t), put(f), put(tr), T, S)
+            got = rans_cuda_bnd.decode_bnd_o0(*args, packed=packed,
+                                              shift=shift)
+            label = (f"S={S} {'packed' if packed else 'counter'} "
+                     f"shift{shift} {what}")
+            if what == "round-trips" and not np.array_equal(
+                    got[0].cpu().numpy(), plane):
+                raise AssertionError(f"decode_bnd_o0 {label}: the symbols "
+                                     "do not round-trip")
+            check("decode_bnd_o0", label, got,
+                  rans_bnd_torch.decode_bnd_o0_ref(*args, packed=packed,
+                                                   shift=shift))
+    rng = np.random.default_rng(SEED + 7)
+    cap = T_STEPS * 32
+    for alphabet, want_S in ((np.frombuffer(b"ACGT", np.uint8), 256),
+                             (np.arange(2, 40, dtype=np.uint8), 40)):
+        datas = [rng.choice(alphabet, int(rng.integers(1, cap + 1)))
+                 for _ in range(200)]
+        datas[7] = datas[7][:20]
+        freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+        tab, f0, S, packed = rans_bnd_torch.o0_tables(
+            rans_torch.build_s3(freqs, 12))
+        if S != want_S:
+            raise AssertionError(f"decode_bnd_o0 B=200: bucket {S}, not "
+                                 f"{want_S}")
+        args = (words, R0, put(tab), put(f0), put(lens // 32), T_STEPS, S)
+        got = rans_cuda_bnd.decode_bnd_o0(*args, packed=packed)
+        syms = got[0].cpu().numpy()
+        for b, d in enumerate(datas):
+            t = len(d) // 32
+            if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
+                raise AssertionError(f"decode_bnd_o0 B=200 S={S}: stream {b} "
+                                     "does not round-trip")
+        check("decode_bnd_o0", f"B=200 x T=4096 S={S} "
+              f"{'packed' if packed else 'counter'} ragged, one empty "
+              "(round-trips)", got,
+              rans_bnd_torch.decode_bnd_o0_ref(*args, packed=packed))
+
+
 def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     """The hand-redesigned walks alone, one launch each, at the main
     path's shapes: the range coder at B = 12 x T = 2^24 and at the -5 e2e
@@ -1114,8 +1266,9 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     shift 12, the order-1 decode walks (decode_o1 and decode_dense_o1 on
     the same streams) at the -3 and -1 launch shapes and on uniform
     symbols (WALK_DECODE_O1), the order-0 decode walks (decode_o0 and
-    decode_bnd_o0) at the -1 launch shapes on bases and on uniform bytes
-    (WALK_DECODE_O0), the 128-slot model evolution at -5's bucket
+    decode_bnd_o0, and a one-step launch of the latter: its prologue) at
+    the -1 launch shapes on bases and on uniform bytes (WALK_DECODE_O0),
+    the 128-slot model evolution at -5's bucket
     shapes (WALK_EVOLVE_128), the TinyModel walk at -5's bucket shapes
     (WALK_TINY) and the 256-slot walk on -5's run-length rows and on
     uniform symbols (WALK_EVOLVE_256).  Uses only the wrappers'
@@ -1181,13 +1334,15 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
         if not torch.equal(out[0], sym):
             raise AssertionError(f"decode_bnd_o0 B={B} T={T}: the symbols do "
                                  "not round-trip")
-        b_ms, by = _bound(_nbytes(*bargs[:5], *out), (
-            OPS_PER_STEP["decode_bnd_o0"] + 2 * S.bit_length()) * B * T * 32)
-        log(f"  walk decode_bnd_o0 B={B} T={T} {kind} S={S} "
-            f"{'packed' if packed else 'counter'}: {k_ms:.3f} ms "
-            f"({T / k_ms / 1e3:.3f} M steps/s a stream, "
-            f"{k_ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step at "
-            f"{CLOCK_HZ / 1e9:.2f} GHz)  bound {b_ms:.4f} ms ({by})")
+        show("decode_bnd_o0", f"B={B} T={T} {kind} S={S} "
+             f"{'packed' if packed else 'counter'}", k_ms, T, B * T * 32,
+             _nbytes(*bargs[:5], *out))
+        # a launch's fixed cost (its prologue): one step a stream
+        one = (*bargs[:4], torch.ones_like(bargs[4]), 1, S)
+        p_ms, _ = _time(lambda: rans_cuda_bnd.decode_bnd_o0(
+            *one, packed=packed), 5)
+        log(f"  walk decode_bnd_o0 B={B} {kind} S={S}: a launch of one step "
+            f"{p_ms:.4f} ms ({100 * p_ms / k_ms:.2f}% of the walk's)")
         del args, bargs, sym, out
     if decode_only:
         return
@@ -1364,8 +1519,8 @@ def bnd_kernels_vs_plain(np, torch, dev):
     def qual(n, lo, width):
         return np.cumsum(rng.integers(-2, 3, n)) % width + lo
 
-    def record(name, label, err, k_ms, p_ms, nsym, nbytes, levels):
-        b_ms, by = _bound(nbytes, (OPS_PER_STEP[name] + 2 * levels) * nsym)
+    def record(name, label, err, k_ms, p_ms, nsym, nbytes):
+        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsym)
         res[name].append((label, err, k_ms, p_ms, b_ms, by))
         log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
             f"({nsym / k_ms / 1e6:.3f} GB/s of symbols)  plain {p_ms:.3f} ms"
@@ -1395,8 +1550,7 @@ def bnd_kernels_vs_plain(np, torch, dev):
                                      "not round-trip")
         record("decode_bnd_o0", f"S={S} {'packed' if packed else 'counter'}",
                _max_err(k_out, p_out), k_ms, p_ms,
-               int((lens // 32).sum()) * 32, _nbytes(*args[:5], *k_out),
-               S.bit_length())
+               int((lens // 32).sum()) * 32, _nbytes(*args[:5], *k_out))
     # A counts byte 0 too: contexts that never occur have all-zero s3
     # rows, which recover as symbol 0 at f = tot (as in the JAX route)
     for want_A, make in ((6, lambda n: rng.choice(dna, n)),
@@ -1424,10 +1578,9 @@ def bnd_kernels_vs_plain(np, torch, dev):
                     raise AssertionError(
                         f"decode_dense_o1 A={A} shift{shift}: stream {b} "
                         "does not round-trip")
-            # a step needs no search (csrc/rans_decode_bnd.cu)
             record("decode_dense_o1", f"A={A} shift{shift}",
                    _max_err(k_out, p_out), k_ms, p_ms, int(iszs.sum()) * 32,
-                   _nbytes(*args[:4], *k_out), 0)
+                   _nbytes(*args[:4], *k_out))
     for name, rows in res.items():
         bad = [r for r in rows if r[1] != 0]
         if bad:
@@ -1883,18 +2036,17 @@ class LaunchShapes:
                 if name == "decode_bnd_o0":
                     f0, t_real, T, S, packed = a[2:7]
                     tabs = (tab, f0)
-                    ops = OPS_PER_STEP[name] + 2 * S.bit_length()
                     alph = f" S={S} {'packed' if packed else 'counter'}"
                 else:
                     t_real, T = a[2:4]
-                    ops = OPS_PER_STEP[name]
                     alph = ""
                 B, W = shape
                 steps = int(t_real.to(torch.int64).clamp(0, T).sum()) * 32
                 # words, states, tables, lengths read; symbols, states,
                 # word counts written
                 b_ms, by = _bound(2 * B * W + _nbytes(R0, *tabs, t_real, R0)
-                                  + B * T * 32 + 4 * B, ops * steps)
+                                  + B * T * 32 + 4 * B,
+                                  OPS_PER_STEP[name] * steps)
                 if name == "decode_o1":
                     alph = []
                     for row in tab:
@@ -2138,6 +2290,7 @@ def main() -> int:
         jax_signatures_vs_cpu(np, torch, dev)
         decode_o1_edge_cases(np, torch, dev)
         dense_o0_edge_cases(np, torch, dev)
+        bnd_o0_edge_cases(np, torch, dev)
         kres.update(adaptive_kernels_vs_plain(np, torch, dev))
         walk_times(np, torch, dev)
         phase("kernels", t0)

@@ -1,15 +1,16 @@
 // The block layout the 32-lane rANS 32x16 decode walks share
 // (rans_decode.cu: decode_o0, decode_o1; rans_decode_bnd.cu:
-// decode_dense_o1): one block a stream, whose warps first build the
-// stream's tables in shared memory (each kernel its own prologue), then
-// split three ways.  Warp 0 walks (lane z is state z), warp 1 keeps the
-// stream's next words in a shared-memory ring (kRingStages stages of
-// kRingStage words, 16-byte cp.async for whole chunks of the row, handed
-// over on mbarriers), and warp 2 writes the symbol rows, staged by the
-// walker in shared memory (kSymStages stages of kSymSteps steps), to
-// global memory in 16-byte stores.  A step reads only shared memory (or
-// the stream's tables in global scratch, where they do not fit): the
-// renormalising lanes take their words from the ring by one shuffle.
+// decode_bnd_o0, decode_dense_o1): one block a stream, whose warps first
+// build the stream's tables in shared memory (each kernel its own
+// prologue), then split three ways.  Warp 0 walks (lane z is state z),
+// warp 1 keeps the stream's next words in a shared-memory ring
+// (kRingStages stages of kRingStage words, 16-byte cp.async for whole
+// chunks of the row, handed over on mbarriers), and warp 2 writes the
+// symbol rows, staged by the walker in shared memory (kSymStages stages of
+// kSymSteps steps), to global memory in 16-byte stores.  A step reads only
+// shared memory (or the stream's tables in global scratch, where they do
+// not fit): the renormalising lanes take their words from the ring by one
+// shuffle.
 //
 // What differs between the walks is a Step functor (o1_walk's template
 // parameter: the table lookup and the state's advance, leaving the step's
@@ -22,10 +23,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rans_dec_common.cuh"
 #include "smem_async.cuh"
 
 namespace fqz5 {
+
+constexpr uint32_t kRansL = 1u << 15;         // renormalisation bound
 
 constexpr int kRingStages = 4;
 constexpr int kRingStage = 512;               // words
@@ -98,7 +100,7 @@ __device__ __forceinline__ void head_init(O1Head& h) {
 // The stream's word ptr + lane for lane `lane`, from the ring: word i of
 // the row sits at ring slot (i + off) mod the ring; past the row's last
 // word (a corrupt stream) it is that word, held in lastw, as
-// fqz5::feed_words' clip reads it.
+// rans_jax.decode_scan clips its reads.
 __device__ __forceinline__ uint32_t ring_word(uint32_t ring, uint32_t ptr,
                                               uint32_t off, uint32_t W,
                                               uint32_t lastw, int lane) {
@@ -107,10 +109,12 @@ __device__ __forceinline__ uint32_t ring_word(uint32_t ring, uint32_t ptr,
     return i < W ? v : lastw;
 }
 
-// Renormalise from the ring: fqz5::feed_words with the stream's next 32
-// words already in the lanes (pw, from ring_word): the renormalising
-// lanes take theirs by one shuffle, so no load address waits on the
-// ballot.
+// Renormalise the lanes whose new state Rn fell below 2^15: they take the
+// stream's next words in lane order, lane z the word at ptr + popc(the
+// renormalising lanes below z), and ptr moves past all of them.  The
+// stream's next 32 words are already in the lanes (pw, from ring_word),
+// so the renormalising lanes take theirs by one shuffle and no load
+// address waits on the ballot.
 __device__ __forceinline__ uint32_t ring_feed(uint32_t Rn, uint32_t pw,
                                               uint32_t& ptr,
                                               uint32_t lt_mask) {

@@ -20,18 +20,16 @@
 //
 // The TPU kernels compared m with every entry, O(S) vector operations a
 // step and O(A^2) at order-1 with the context loop, because the TPU has no
-// per-lane gather.  At order-0 one warp owns one stream and its table sits
-// in shared memory (at most 256 entries, 1 KB); each lane finds its entry
-// by a branch-free binary search over the boundary fields, which are
-// cumulative frequencies and so nondecreasing: ceil(log2(S+1)) dependent
-// shared-memory loads, and words come in by ballot/popc from global memory
-// (fqz5::feed_words, rans_dec_common.cuh).  At order-1 one block owns one
-// stream, in the layout of rans_dec_walk.cuh, and its prologue turns the
-// dense rows into compact tables from which a step needs no search (see
-// decode_dense_o1_kernel).
+// per-lane gather.  Here both walks give a block to a stream, in the layout
+// of rans_dec_walk.cuh (a walker warp whose step reads only shared memory,
+// a feeder warp that keeps the stream's words in a shared ring, a writer
+// warp), and each prologue turns the stream's boundary entries into a
+// table indexed by the slot m, so that a step needs no search: at order-0
+// one (sym, F, m - C) entry a slot (decode_bnd_o0_kernel), at order-1 a
+// slot code and an entry word a context (decode_dense_o1_kernel).
 //
 // What bounds them on the H100: each lane's serial chain of dependent
-// steps, R -> table loads -> multiply -> word -> R, once per symbol.  The
+// steps, R -> table load -> multiply -> word -> R, once per symbol.  The
 // bytes (one symbol byte out, at most two word bytes in) and integer
 // operations of a step are far below the card's rates.
 
@@ -47,76 +45,181 @@ using namespace fqz5;
 
 constexpr int kMaxO0Entries = 256;
 
-// Largest power of two <= n (1 for n < 2).
-__host__ __device__ inline int top_pow2(int n) {
-    int t = 1;
-    while (t * 2 <= n) t *= 2;
-    return t;
+// ---------------------------------------------------------------------
+// Order-0: one block per stream, 96 threads (walker, feeder, writer).
+//
+// The prologue builds, from the stream's S entries and f0, one entry for
+// each slot m < tot holding exactly the (sym, F, m - C) the plain walk
+// gives for that m (rans_bnd_torch.select_entry):
+//   - the selected entry is the last one whose boundary is at most m, the
+//     base (f0 << 13 or << 14) where there is none: filled as runs, entry
+//     c over [its boundary, the least boundary after it) and the base over
+//     [0, the least boundary), so every slot is written once whatever
+//     order the boundaries are in;
+//   - packed: sym is the selected entry's tag, P >> 26; counter form: sym
+//     is the count of boundaries at most m (c only where they rise), from
+//     a histogram of the boundaries below tot and its prefix over the
+//     slots;
+//   - F and C as unpack() reads them: the counter form's F is the JAX
+//     kernels' int32 shift (18 signed bits), and the base's C is 0.
+// F is taken literally (a row may sum below tot; F = 0 is no frequency of
+// tot here, unlike decode_o0's s3 word), and a hand-made or corrupt entry
+// may put C past m by up to 14 bits, so a slot takes two words: F, and
+// (m - C) << 8 | sym, sign-extended on read, in two arrays of tot words
+// read by independent loads (1-1.5% faster than one 8-byte entry a slot on
+// the H100 at 700 W).  At shift 12 that is 32 KB a stream, about 43 KB a
+// block with the head.
+//
+// A step is then two independent shared loads, one multiply-add and the
+// ring feed.  The rows past t_real hold 0, and ptrf counts the words
+// consumed, unclipped.
+constexpr int kBndThreads = 96;
+
+// bytes of a block's shared memory past the head: the slot table's two
+// arrays, the entries and the runs' ends
+__host__ __device__ inline int bnd_o0_bytes(int S, int shift) {
+    return (8 << shift) + 4 * S + 4 * (S + 1);
 }
 
-// How many of the n nondecreasing boundary fields of tab[0..n) are at
-// most m; top = top_pow2(n).
-__device__ __forceinline__ int count_le(const uint32_t* tab, int n, int top,
-                                        uint32_t cmask, uint32_t m) {
-    int c = 0;
-    for (int step = top; step > 0; step >>= 1) {
-        if (c + step <= n && (tab[c + step - 1] & cmask) <= m) c += step;
-    }
-    return c;
-}
-
-// Symbol, frequency and start of the selected entry P; c is the count of
-// boundaries <= m (P is the base entry when c == 0).
+// Symbol, frequency and start of the selected entry P (the base entry's C
+// is 0 in both forms).  The counter form's symbol is the count of
+// boundaries at most m instead, which the caller counts.
 template <bool kPacked>
-__device__ __forceinline__ void unpack(uint32_t P, int c, uint32_t& sym,
+__device__ __forceinline__ void unpack(uint32_t P, uint32_t& sym,
                                        uint32_t& F, uint32_t& C) {
+    sym = P >> 26;
     if (kPacked) {
-        sym = P >> 26;
         F = (P >> 13) & 0x1FFFu;
         C = P & 0x1FFFu;
     } else {
-        sym = (uint32_t)c;
         F = (uint32_t)((int32_t)P >> 14);  // the JAX kernels' int32 shift
-        C = c > 0 ? (P & 0x3FFFu) : 0u;
+        C = P & 0x3FFFu;
     }
 }
 
-template <bool kPacked>
-__global__ void decode_bnd_o0_kernel(const uint16_t* __restrict__ words,
-                                     long long W,
-                                     const uint32_t* __restrict__ R0,
-                                     const uint32_t* __restrict__ tab,
-                                     const int32_t* __restrict__ f0,
-                                     const int32_t* __restrict__ t_real,
-                                     int T, int S, int shift,
-                                     uint8_t* __restrict__ syms,
-                                     uint32_t* __restrict__ Rf,
-                                     int32_t* __restrict__ ptrf) {
-    __shared__ uint32_t ent[kMaxO0Entries];
-    const int b = blockIdx.x;
-    const int lane = threadIdx.x;
-    for (int k = lane; k < S; k += 32) ent[k] = tab[(long long)b * S + k];
-    __syncwarp();
+// One step through the slot table in shared memory: F * (R >> shift) +
+// (m - C); ctx carries the symbol in its low byte, which the walker stages.
+struct BndO0Step {
+    uint32_t fw, hw;                      // shared addresses of the arrays
+    uint32_t shift, mask;
+    uint32_t ctx = 0;
 
-    constexpr uint32_t cmask = kPacked ? 0x1FFFu : 0x3FFFu;
-    const uint32_t base = (uint32_t)f0[b] << (kPacked ? 13 : 14);
-    const int top = top_pow2(S);
-    const uint32_t mask = (1u << shift) - 1u;
-    const uint16_t* w = words + (long long)b * W;
-    uint8_t* out = syms + (long long)b * T * 32;
-    const uint32_t lt_mask = (1u << lane) - 1u;
-    const int tr = max(0, min(t_real[b], T));
-    uint32_t R = R0[b * 32 + lane];
-    long long ptr = 0;
-    for (int t = 0; t < tr; ++t) {
+    __device__ __forceinline__ uint32_t operator()(uint32_t R) {
         const uint32_t m = R & mask;
-        const int c = count_le(ent, S, top, cmask, m);
-        uint32_t sym, F, C;
-        unpack<kPacked>(c ? ent[c - 1] : base, c, sym, F, C);
-        R = fqz5::feed_words(F * (R >> shift) + (m - C), w, W, ptr, lt_mask);
-        out[(long long)t * 32 + lane] = (uint8_t)sym;
+        const uint32_t F = lds_u32(fw + 4 * m);
+        const uint32_t hi = lds_u32(hw + 4 * m);
+        ctx = hi;
+        return F * (R >> shift) + (uint32_t)((int32_t)hi >> 8);
     }
-    for (int t = tr; t < T; ++t) out[(long long)t * 32 + lane] = 0;
+};
+
+template <bool kPacked>
+__global__ void __launch_bounds__(kBndThreads)
+decode_bnd_o0_kernel(const uint16_t* __restrict__ words, long long W,
+                     const uint32_t* __restrict__ R0,
+                     const uint32_t* __restrict__ tab,
+                     const int32_t* __restrict__ f0,
+                     const int32_t* __restrict__ t_real, int T, int S,
+                     int shift, uint8_t* __restrict__ syms,
+                     uint32_t* __restrict__ Rf, int32_t* __restrict__ ptrf) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    O1Head& h = *reinterpret_cast<O1Head*>(smem);
+    const uint32_t tot = 1u << shift;
+    // slot m's two words: fw[m] = F, hw[m] = (m - C) << 8 | sym
+    uint32_t* fw = reinterpret_cast<uint32_t*>(smem + kHeadBytes);
+    uint32_t* hw = fw + tot;
+    uint32_t* ent = hw + tot;
+    uint32_t* after = ent + S;     // after[c]: least boundary of c..S-1
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    constexpr uint32_t cmask = kPacked ? 0x1FFFu : 0x3FFFu;
+
+    // prologue 1: the entries; the counter form's histogram starts at 0
+    if (tid == 0) head_init(h);
+    for (int k = tid; k < S; k += kBndThreads)
+        ent[k] = __ldg(tab + (size_t)b * S + k);
+    if (!kPacked)
+        for (uint32_t m = tid; m < tot; m += kBndThreads) hw[m] = 0;
+    __syncthreads();
+
+    // prologue 2: warp 0 the runs' ends (a suffix minimum of the boundaries
+    // clamped to tot, lane by lane over chunks of the entries); warps 1 and
+    // 2 the counter form's histogram of the boundaries below tot
+    if (warp == 0) {
+        const int k = (S + 31) / 32;
+        const int j0 = min(lane * k, S), j1 = min(j0 + k, S);
+        uint32_t incl = tot;
+        for (int j = j0; j < j1; ++j) incl = min(incl, ent[j] & cmask);
+        for (int d = 1; d < 32; d <<= 1) {
+            const uint32_t v = __shfl_down_sync(0xffffffffu, incl, d);
+            if (lane + d < 32) incl = min(incl, v);
+        }
+        uint32_t cur = __shfl_down_sync(0xffffffffu, incl, 1);
+        if (lane == 31) cur = tot;
+        for (int j = j1 - 1; j >= j0; --j) {
+            cur = min(cur, ent[j] & cmask);
+            after[j] = cur;
+        }
+        if (lane == 0) after[S] = tot;
+    } else if (!kPacked) {
+        for (int j = tid - 32; j < S; j += kBndThreads - 32) {
+            const uint32_t bnd = ent[j] & cmask;
+            if (bnd < tot) atomicAdd(&hw[bnd], 1u);
+        }
+    }
+    __syncthreads();
+
+    // prologue 3 (counter form): the count of boundaries at most m, a
+    // prefix of the histogram, 32 slots a round
+    if (!kPacked) {
+        if (warp == 0) {
+            uint32_t carry = 0;
+            for (uint32_t m0 = 0; m0 < tot; m0 += 32) {
+                const uint32_t m = m0 + lane;
+                uint32_t v = m < tot ? hw[m] : 0u;
+                for (int d = 1; d < 32; d <<= 1) {
+                    const uint32_t u = __shfl_up_sync(0xffffffffu, v, d);
+                    if (lane >= d) v += u;
+                }
+                v += carry;
+                if (m < tot) hw[m] = v;
+                carry = __shfl_sync(0xffffffffu, v, 31);
+            }
+        }
+        __syncthreads();
+    }
+
+    // prologue 4: the runs, one warp a run
+    const uint32_t base = (uint32_t)f0[b] << (kPacked ? 13 : 14);
+    for (int r = warp; r <= S; r += kBndThreads / 32) {
+        const uint32_t P = r ? ent[r - 1] : base;
+        const uint32_t lo = r ? min(ent[r - 1] & cmask, tot) : 0u;
+        uint32_t sym, F, C;
+        unpack<kPacked>(P, sym, F, C);
+        for (uint32_t m = lo + lane; m < after[r]; m += 32) {
+            if (!kPacked) sym = hw[m];
+            fw[m] = F;
+            hw[m] = (m - C) << 8 | (sym & 0xFFu);
+        }
+    }
+    __syncthreads();
+
+    const int tr = max(0, min(t_real[b], T));
+    const uint16_t* w = words + (size_t)b * W;
+    const uint32_t off = row_off(w);
+    if (feed_or_write<false>(h, warp, w, (uint32_t)W, off,
+                             syms + (size_t)b * T * 32, tr, T, lane))
+        return;
+
+    uint32_t R = R0[b * 32 + lane];
+    uint32_t ptr = 0;
+    BndO0Step step{smem_addr(fw), smem_addr(hw), (uint32_t)shift, tot - 1u};
+    o1_walk(h, step, R, ptr, tr, (uint32_t)W, off, w[W - 1], lane);
+    h.stop = 1;
+    h.last[lane] = 0;
+    pair_sync();
     Rf[b * 32 + lane] = R;
     if (lane == 0) ptrf[b] = (int32_t)ptr;
 }
@@ -282,11 +385,18 @@ extern "C" int fqz5_rans_decode_bnd_o0(const uint16_t* words, long long W,
                                        int S, int packed, int shift,
                                        uint8_t* syms, uint32_t* Rf,
                                        int32_t* ptrf, void* stream) {
-    if (S < 1 || S > kMaxO0Entries) return (int)cudaErrorInvalidValue;
+    if (S < 1 || S > kMaxO0Entries || W < 1 || W > INT_MAX ||
+        (long long)T * 32 > INT_MAX || shift < 1 || shift > 12)
+        return (int)cudaErrorInvalidValue;
+    if (B <= 0) return 0;
     auto kern = packed ? decode_bnd_o0_kernel<true>
                        : decode_bnd_o0_kernel<false>;
-    kern<<<B, 32, 0, (cudaStream_t)stream>>>(words, W, R0, tab, f0, t_real,
-                                             T, S, shift, syms, Rf, ptrf);
+    const int smem = kHeadBytes + bnd_o0_bytes(S, shift);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    kern<<<B, kBndThreads, smem, (cudaStream_t)stream>>>(
+        words, W, R0, tab, f0, t_real, T, S, shift, syms, Rf, ptrf);
     return (int)cudaGetLastError();
 }
 

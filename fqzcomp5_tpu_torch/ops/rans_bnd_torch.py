@@ -15,9 +15,11 @@ The numpy builders are copies of the JAX package's
 streams and contexts at once.  ``freqs_from_s3`` recovers the frequency
 tables from the native dec prep's s3 LUTs as the JAX engine does.
 
-``dense_compact_tables`` and ``decode_dense_compact`` mirror, in numpy,
-the compact tables that csrc/rans_decode_bnd.cu's dense order-1 kernel
-builds on the card from the dense rows, and its walk over them.
+``bnd_o0_slot_table`` and ``decode_bnd_o0_compact`` mirror, in numpy,
+the per-slot table that csrc/rans_decode_bnd.cu's order-0 kernel builds
+on the card from a stream's boundary entries, and its walk over it;
+``dense_compact_tables`` and ``decode_dense_compact`` the compact tables
+of its dense order-1 kernel, and its walk over them.
 
 The plain versions ``decode_bnd_o0_ref`` and ``decode_dense_o1_ref`` walk
 compact per-stream layouts (one row of 32 lane states per stream) and
@@ -269,6 +271,69 @@ def decode_dense_o1_ref(words: torch.Tensor, R0: torch.Tensor,
         return sym, F, C
 
     return _walk(words, R0, t_real, T, shift, step)
+
+
+# ---------------------------------------------------------------------
+# numpy mirror of the order-0 boundary decode kernel's slot table and walk
+
+def bnd_o0_slot_table(tab_row, f0: int, S: int, packed: bool, shift: int):
+    """The per-slot table csrc/rans_decode_bnd.cu's decode_bnd_o0 prologue
+    builds from one stream's S entries (build_dec_tables or
+    build_dec_tables_p) and its symbol-0 frequency f0: (sym (tot,) uint8,
+    F (tot,) uint32, bias (tot,) int64 m - C), what select_entry gives at
+    each slot m.  The selected entry, the last whose boundary is at most
+    m (the base where none is), is filled as runs, entry c from its
+    boundary to the least boundary after it; the counter form's symbol is
+    the count of boundaries at most m, whatever order they are in."""
+    tot = 1 << shift
+    E = np.asarray(tab_row).view(np.uint32)[:S].astype(np.int64)
+    bnd = np.minimum(E & (0x1FFF if packed else 0x3FFF), tot)
+    after = np.minimum.accumulate(np.append(bnd, tot)[::-1])[::-1]
+    lo = np.concatenate([[0], bnd])
+    P = np.concatenate([[(int(f0) << (13 if packed else 14)) & M32], E])
+    sel = np.zeros(tot, np.int64)
+    for r in range(S + 1):
+        sel[lo[r]:after[r]] = r
+    P = P[sel]
+    if packed:
+        sym, F, C = P >> 26, (P >> 13) & 0x1FFF, P & 0x1FFF
+    else:
+        sym = np.cumsum(np.bincount(bnd[bnd < tot], minlength=tot))
+        F = (((P ^ 0x80000000) - 0x80000000) >> 14) & M32
+        C = P & 0x3FFF
+    return ((sym & 0xFF).astype(np.uint8), F.astype(np.uint32),
+            np.arange(tot) - C)
+
+
+def decode_bnd_o0_compact(words, R0, tab, f0, t_real, T: int, S: int, *,
+                          packed: bool, shift: int = TF_SHIFT):
+    """decode_bnd_o0_ref as the kernel steps it over bnd_o0_slot_table, in
+    numpy: a slot's two shared words, F and (m - C) << 8 | sym, the second
+    sign-extended on read; the rows past t_real 0.  The same arguments
+    and results as decode_bnd_o0_ref, as numpy arrays (syms (B, T, 32)
+    uint8, Rf (B, 32) uint32, ptrf (B,) int32)."""
+    words = np.asarray(words).view(np.uint16).astype(np.int64)
+    R0 = np.asarray(R0).view(np.uint32).astype(np.int64)
+    B = words.shape[0]
+    mask = (1 << shift) - 1
+    syms = np.zeros((B, T, N), np.uint8)
+    Rf = np.empty((B, N), np.uint32)
+    ptrf = np.empty(B, np.int32)
+    for b in range(B):
+        sym, F, bias = bnd_o0_slot_table(tab[b], f0[b], S, packed, shift)
+        hi = ((bias << 8) | sym) & M32
+        bias = ((hi ^ 0x80000000) - 0x80000000) >> 8
+        F = F.astype(np.int64)
+        R = R0[b].copy()
+        ptr = 0
+        for t in range(max(0, min(int(t_real[b]), T))):
+            m = R & mask
+            Rn = (F[m] * (R >> shift) + bias[m]) & M32
+            R, ptr = _ring_feed(Rn, words[b], ptr)
+            syms[b, t] = hi[m] & 0xFF
+        Rf[b] = R
+        ptrf[b] = ptr
+    return syms, Rf, ptrf
 
 
 # ---------------------------------------------------------------------

@@ -38,7 +38,10 @@ def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                   packed: bool, shift: int = TF_SHIFT):
     """Order-0 boundary-table decode walk; see
     rans_bnd_torch.decode_bnd_o0_ref for the arguments and the (syms,
-    Rf, ptrf) results."""
+    Rf, ptrf) results.  The kernel walks a per-slot table it builds from
+    each stream's entries (rans_bnd_torch.bnd_o0_slot_table) and equals
+    the plain walk on any table: boundaries in any order, rows summing
+    below tot, any F fields."""
     if words.device.type == "cpu":
         return rans_bnd_torch.decode_bnd_o0_ref(
             words, R0, tab, f0, t_real, T, S, packed=packed, shift=shift)
