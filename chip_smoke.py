@@ -74,7 +74,25 @@ Phases, each printed with its time; any failure exits non-zero:
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
      versions; in subprocesses started before phase 3, which run beside
      the card's phases), requiring equal archives.
-  6. corrupt -- 8 seeded mutations each of a -1 and a -3 archive (byte
+  6. scale   -- the scale-out paths (fqzcomp5_tpu_torch.parallel) on a
+     mesh of every visible card, or of cuda:0 twice (1 x 2, its ranges one
+     after another) when one is visible: the corpus at -1 over the mesh
+     (cmp with the e2e phase's -1 archive), that archive decoded over the
+     mesh with both table forms (cmp with the source), and a 16 MB prefix
+     at -5 -b 500000 (about 32 blocks, two waves) over the mesh and on
+     cuda:0 alone (cmp).  Then two ranks of the port's distributed entry on
+     127.0.0.1 over gloo, -e cuda, each on cuda:{rank % cards}, started
+     through --dist-rank: the corpus at -1 (cmp with the e2e archive; the
+     ranks' parse bytes sum to at most the file + 1 KB), the prefix at -5
+     with a 1x2 local mesh a rank (FQZ5_DIST_LOCAL_MESH; cmp with the
+     cuda:0 archive), and -d of the -1 archive (cmp with the source).
+     Every run sets the counts to 0 before it and requires its kernels
+     after it, the ranks' counts included (at -5, rank 0 owns the wave
+     of trial blocks and must launch all five kernels of the path; the
+     later wave runs the locked methods only, so rank 1 must launch
+     some); wall seconds and MB/s are
+     logged, one card's numbers when one card is visible.
+  7. corrupt -- 8 seeded mutations each of a -1 and a -3 archive (byte
      stomps that reach the rANS payloads, an absurd output size,
      truncations), each decoded through the CLI on the card with both
      table forms in a subprocess of its own: each must exit 0, or 1 with
@@ -96,6 +114,18 @@ walks with --boundary): writes the two tables to DIR/<preset> (or
 DIR/<preset>-boundary; default build/profile/) and prints the device's busy time
 and idle share, the kernels' device times, the host functions that take
 the most time and the order-1 decode and model-evolution launch shapes.
+
+    python3 chip_smoke.py --scale
+
+builds the kernels, makes the same corpus, encodes it at -1 through the
+CLI and runs only the scale phase against that archive, on a mesh of
+every visible card (for a host with several).
+
+    python3 chip_smoke.py --dist-rank ARGS...
+
+runs one rank of fqzcomp5_tpu_torch.parallel.distributed with ARGS
+(FQZ5_DIST_* in the environment) and prints its kernels' launch counts
+as one JSON line: the scale phase's ranks.
 
     python3 chip_smoke.py --walk-times [--decode] [--root DIR]
 
@@ -137,6 +167,11 @@ CPU_ENCODE_TIMEOUT_S = 900
 # presets whose archive is decoded again through the boundary-table
 # walks, and the kernel each such decode must launch
 BOUNDARY = {"-1": "decode_bnd_o0", "-3": "decode_dense_o1"}
+# the scale phase: the -5 prefix (MB) and its block size (about 32
+# blocks, two waves), and each distributed rank's limit
+SCALE_PREFIX_MB = 16
+SCALE_BLK = 500_000
+DIST_TIMEOUT_S = 600
 # corrupt archives a preset in the corrupt phase, and each decode's limit
 CORRUPT_SEEDS = 8
 CORRUPT_TIMEOUT_S = 300
@@ -1972,6 +2007,199 @@ def card_vs_cpu(work: str, lvl: str, mb: int, pre: str, cpu_c: str,
         os.remove(p)
 
 
+def counted_kernels() -> dict:
+    """{name: wrapper} of the nine kernels; each wrapper's .launches
+    counts its kernel's launches."""
+    from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda, rans_cuda_bnd,
+                                        rans_cuda_dec, rc_cuda)
+
+    return {"encode_walk": rans_cuda.encode_walk,
+            "decode_o0": rans_cuda_dec.decode_o0,
+            "decode_o1": rans_cuda_dec.decode_o1,
+            "decode_bnd_o0": rans_cuda_bnd.decode_bnd_o0,
+            "decode_dense_o1": rans_cuda_bnd.decode_dense_o1,
+            "evolve_128": model_cuda.evolve_128,
+            "evolve_256": model_cuda.evolve_256,
+            "tiny_evolve": model_cuda.tiny_evolve,
+            "rc_encode_walk": rc_cuda.encode_walk}
+
+
+def dist_rank(argv) -> int:
+    """--dist-rank ARGS: one rank of the port's distributed entry
+    (fqzcomp5_tpu_torch.parallel.distributed.main(ARGS)), then its
+    kernels' launch counts as one JSON line."""
+    sys.path.insert(0, ROOT)
+    from fqzcomp5_tpu_torch.parallel import distributed
+
+    rc = distributed.main(argv)
+    print(json.dumps({"rank_launches": int(os.environ["FQZ5_DIST_PID"]),
+                      **{k: fn.launches
+                         for k, fn in counted_kernels().items()}}),
+          flush=True)
+    return rc
+
+
+def dist_run(nprocs: int, args, env=None) -> list:
+    """Runs nprocs ranks of --dist-rank ARGS on 127.0.0.1 (gloo), each
+    within DIST_TIMEOUT_S; any rank that fails or times out fails the
+    run, and every rank is stopped.  Returns [(FQZ5_DIST_STATS line,
+    launch counts)] by rank."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for pid in range(nprocs):
+        e = {k: v for k, v in os.environ.items()
+             if k not in ("FQZ5_DIST_LOCAL_MESH", "FQZ5_DEC_V3")}
+        e.update({"FQZ5_DIST_COORD": f"127.0.0.1:{port}",
+                  "FQZ5_DIST_NPROCS": str(nprocs),
+                  "FQZ5_DIST_PID": str(pid), "FQZ5_DIST_STATS": "1",
+                  **(env or {})})
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             *map(str, args)], cwd=ROOT, env=e, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=DIST_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    res = []
+    for pid, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise RuntimeError(f"rank {pid} of {' '.join(map(str, args))} "
+                               f"exited {rc}: {err[-3000:]}")
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        res.append((next(d for d in lines if "dist_stat" in d),
+                    next(d for d in lines if "rank_launches" in d)))
+    return res
+
+
+def scale_mesh(torch):
+    """Every visible card (dp x 2 when their count is even), or cuda:0
+    twice (1 x 2) when one is visible."""
+    from fqzcomp5_tpu_torch.parallel.pipeline import make_mesh
+
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(n)]
+    return make_mesh(devs * 2 if n == 1 else devs,
+                     sp=2 if n == 1 or n % 2 == 0 else 1)
+
+
+def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
+          dist_args, reset, read, launches) -> None:
+    """The scale phase: the wave engine over `mesh` and under
+    torch.distributed, each archive against one device's and each decode
+    against the source.  comp1: the e2e phase's -1 archive of src; dev0:
+    the one device; dist_args: extra arguments of every rank."""
+    from fqzcomp5_tpu_torch import cli, cuda_driver, drivers
+
+    one = len(set(mesh.devices)) == 1
+    note = (f"; {mesh.size} slots of one card run one after another: not "
+            "multi-GPU scaling" if one else f"; {mesh.size} cards")
+    log(f"scale: mesh {mesh}")
+
+    def timed(what, size, fn):
+        t1 = time.monotonic()
+        fn()
+        sec = time.monotonic() - t1
+        log(f"scale {what}: {sec:.3f} s = {size / sec / 1e6:.2f} MB/s{note}")
+
+    def encode(path, dst, arg, dev):
+        with open(dst, "wb") as fp:
+            cuda_driver.encode_file(path, fp, arg, cuda_driver.Timings(), dev)
+
+    arg1, _, _ = cli.parse_args(["-1", "-V"])
+    comp = os.path.join(work, "mesh-1.fqz5")
+    reset()
+    timed("-1 encode over the mesh", nbytes,
+          lambda: encode(src, comp, arg1, mesh))
+    read("scale -1 mesh encode", ["encode_walk"], {})
+    same(comp, comp1)
+    os.remove(comp)
+    argd, _, _ = cli.parse_args(["-d", "-V"])
+    out = os.path.join(work, "scale.fastq")
+    for tables, need, decoders in (
+            ("lut", [], {"decode_o0": "decode_o0", "decode_o1": "decode_o1"}),
+            ("boundary", [BOUNDARY["-1"]], {"decode_o0": "decode_bnd_o0"})):
+        def decode():
+            with open(comp1, "rb") as fp, open(out, "wb") as o:
+                cuda_driver.decode_file(fp, drivers.make_fastq_writer(o, argd),
+                                        argd, cuda_driver.Timings(), mesh,
+                                        tables=tables)
+        reset()
+        timed(f"-1 decode over the mesh ({tables} tables)", nbytes, decode)
+        read(f"scale -1 mesh decode ({tables})", need, decoders)
+        same(src, out)
+        os.remove(out)
+
+    pre = os.path.join(work, "scale-prefix.fastq")
+    prefix_copy(src, pre, int(SCALE_PREFIX_MB * 1_000_000))
+    pbytes = os.path.getsize(pre)
+    arg5, _, _ = cli.parse_args(["-5", "-V"])
+    arg5.blk_size = SCALE_BLK
+    c5m, c5 = (os.path.join(work, f"scale-5{k}.fqz5") for k in ("m", "1"))
+    for dev, dst, what in ((mesh, c5m, "over the mesh"),
+                           (dev0, c5, f"on {dev0} alone")):
+        reset()
+        timed(f"-5 -b {SCALE_BLK} encode of the {pbytes}-byte prefix {what}",
+              pbytes, lambda: encode(pre, dst, arg5, dev))
+        read(f"scale -5 prefix {what}", dict(PATHS)["-5"], {})
+    same(c5m, c5)
+    os.remove(c5m)
+
+    def ranks(what, nprocs, size, args, env=None):
+        t1 = time.monotonic()
+        res = dist_run(nprocs, [*args, *dist_args], env)
+        sec = time.monotonic() - t1
+        log(f"scale distributed {what}: {sec:.3f} s = "
+            f"{size / sec / 1e6:.2f} MB/s, {nprocs} ranks{note}")
+        for st, ln in res:
+            log(f"  rank {st['dist_stat']}: {json.dumps(st)}; kernel "
+                f"launches {json.dumps(ln)}")
+            for k in launches:
+                launches[k] += ln[k]
+        return res
+
+    dcomp = os.path.join(work, "dist-1.fqz5")
+    res = ranks("-1 encode", 2, nbytes, ["-1", "-e", "cuda", src, dcomp])
+    same(dcomp, comp1)
+    if any(ln["encode_walk"] == 0 for _, ln in res):
+        raise AssertionError("a rank of the distributed -1 encode never "
+                             "launched encode_walk")
+    parsed = sum(st["parse_bytes"] for st, _ in res)
+    if parsed > nbytes + 1024:
+        raise AssertionError(f"the ranks parsed {parsed} bytes of a "
+                             f"{nbytes}-byte input")
+    dcomp5 = os.path.join(work, "dist-5.fqz5")
+    res = ranks("-5 encode of the prefix, a 1x2 local mesh a rank", 2, pbytes,
+                ["-5", "-b", SCALE_BLK, "-e", "cuda", pre, dcomp5],
+                {"FQZ5_DIST_LOCAL_MESH": "1x2"})
+    same(dcomp5, c5)
+    # rank 0 owns the wave of trial blocks, which tries every method; the
+    # later wave runs only the methods the learner locked
+    missing = [k for k in dict(PATHS)["-5"] if res[0][1][k] == 0]
+    if missing:
+        raise AssertionError(f"rank 0 of the distributed -5 encode (the "
+                             f"trial wave) never launched {missing}")
+    if not any(res[1][1][k] for k in dict(PATHS)["-5"]):
+        raise AssertionError("rank 1 of the distributed -5 encode launched "
+                             "no kernel of the path")
+    ranks("-1 decode (host)", 2, nbytes, ["-d", dcomp, out])
+    same(src, out)
+    for p in (out, dcomp, dcomp5, c5, pre):
+        os.remove(p)
+
+
 class LaunchShapes:
     """Inside a with block, records the shape of every rANS decode and
     model-evolution launch (through a wrapper around the package's
@@ -2194,6 +2422,56 @@ def profile_main(np, torch, levels: str, out_dir: str, decode: bool,
     return 0
 
 
+def scale_main(np, torch) -> int:
+    """--scale: only the scale phase, on every visible card: builds, makes
+    the corpus, encodes it at -1 through the CLI (the reference archive),
+    then runs scale() with each run's kernels required."""
+    from fqzcomp5_tpu_torch import engine_cuda
+    from fqzcomp5_tpu_torch.ops import _build
+
+    engine_cuda._lib()
+    _build.lib()
+    counted = counted_kernels()
+    batches = (engine_cuda.decode_o0_batch, engine_cuda.decode_o1_batch)
+    launches = dict.fromkeys(counted, 0)
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+        for fn in batches:
+            fn.calls = 0
+
+    def read(path, need, decoders):
+        got = {k: fn.launches for k, fn in counted.items()}
+        calls = {b.__name__.replace("_batch", ""): b.calls for b in batches}
+        need = [*need, *(k for b, k in decoders.items() if calls[b])]
+        log(f"kernel launches in the {path} run: {got}")
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels of the {path} path never "
+                                 f"launched in its run: {missing}")
+        for k, v in got.items():
+            launches[k] += v
+
+    work = tempfile.mkdtemp(prefix="fqz5_chip_scale_")
+    try:
+        t0 = time.monotonic()
+        src = os.path.join(work, "in.fastq")
+        nbytes = make_corpus(src, CORPUS_MB, np)
+        comp1 = os.path.join(work, "c-1.fqz5")
+        t1 = time.monotonic()
+        run_cli(["-1", "-V", src, comp1])
+        log(f"-1 encode of the corpus through the CLI on cuda:0: "
+            f"{time.monotonic() - t1:.3f} s")
+        scale(src, nbytes, work, comp1, scale_mesh(torch),
+              torch.device("cuda", 0), [], reset, read, launches)
+        phase("scale", t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"kernel launches of the scale phase: {json.dumps(launches)}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2215,11 +2493,18 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="with --walk-times or --profile: the checkout "
                     "whose fqzcomp5_tpu_torch is timed")
+    ap.add_argument("--scale", action="store_true",
+                    help="only run the scale phase, on every visible card")
+    ap.add_argument("--dist-rank", nargs=argparse.REMAINDER,
+                    help="only run one rank of the port's distributed entry "
+                    "with these arguments (the scale phase's ranks)")
     ap.add_argument("--cpu-encode", nargs=3, metavar=("LEVEL", "IN", "OUT"),
                     help="only encode IN at LEVEL on the CPU (plain "
                     "versions) to OUT; the e2e phase runs this beside the "
                     "card's phases")
     opts = ap.parse_args()
+    if opts.dist_rank is not None:
+        return dist_rank(opts.dist_rank)
     if opts.cpu_encode:
         return cpu_encode(*opts.cpu_encode)
 
@@ -2240,6 +2525,9 @@ def main() -> int:
     log(smi)
     phase("device", t0)
 
+    if opts.scale:
+        sys.path.insert(0, ROOT)
+        return scale_main(np, torch)
     if opts.walk_times or opts.profile:
         sys.path.insert(0, os.path.abspath(opts.root))
         from fqzcomp5_tpu_torch.ops import _build
@@ -2256,7 +2544,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     from fqzcomp5_tpu_torch import engine_cuda
-    from fqzcomp5_tpu_torch.ops import _build, rans_cuda, rans_cuda_dec
+    from fqzcomp5_tpu_torch.ops import _build
 
     t1 = time.monotonic()
     engine_cuda._lib()  # builds the native host library (make) if absent
@@ -2295,16 +2583,7 @@ def main() -> int:
         walk_times(np, torch, dev)
         phase("kernels", t0)
 
-        from fqzcomp5_tpu_torch.ops import model_cuda, rans_cuda_bnd, rc_cuda
-        counted = {"encode_walk": rans_cuda.encode_walk,
-                   "decode_o0": rans_cuda_dec.decode_o0,
-                   "decode_o1": rans_cuda_dec.decode_o1,
-                   "decode_bnd_o0": rans_cuda_bnd.decode_bnd_o0,
-                   "decode_dense_o1": rans_cuda_bnd.decode_dense_o1,
-                   "evolve_128": model_cuda.evolve_128,
-                   "evolve_256": model_cuda.evolve_256,
-                   "tiny_evolve": model_cuda.tiny_evolve,
-                   "rc_encode_walk": rc_cuda.encode_walk}
+        counted = counted_kernels()
         batches = {"decode_o0": engine_cuda.decode_o0_batch,
                    "decode_o1": engine_cuda.decode_o1_batch}
         launches = dict.fromkeys(counted, 0)
@@ -2359,7 +2638,10 @@ def main() -> int:
                     f"bytes; boundary-table walks {bnd_s:.3f} s "
                     f"({nbytes / bnd_s / 1e6:.2f} MB/s), tables {bnd_bytes} "
                     "bytes; both match the source")
-            os.remove(comp)
+            if lvl == "-1":
+                comp1 = comp   # the scale phase's reference
+            else:
+                os.remove(comp)
         zero = [k for k, v in launches.items() if v == 0]
         if zero:
             raise AssertionError(f"kernels never launched on the main paths: "
@@ -2367,6 +2649,12 @@ def main() -> int:
         for job in cpu_jobs:
             card_vs_cpu(work, *job)
         phase("e2e", t0)
+        t0 = time.monotonic()
+        torch.cuda.empty_cache()
+        scale(src, nbytes, work, comp1, scale_mesh(torch),
+              torch.device("cuda", 0), [], reset, read, launches)
+        os.remove(comp1)
+        phase("scale", t0)
         t0 = time.monotonic()
         corrupt_on_card(np, work)
         phase("corrupt", t0)

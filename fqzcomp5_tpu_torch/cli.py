@@ -68,6 +68,10 @@ Compression levels:
     -9            Maximum compression, with 1GB blocks
 """
 
+TPU_ENGINE_REFUSED = ("-e tpu is the JAX package's engine (python -m "
+                      "fqzcomp5_tpu.cli); this command runs -e cuda or -e "
+                      "host")
+
 
 def parse_size(s: str) -> int:
     mult = 1
@@ -132,9 +136,7 @@ def parse_args(argv: list[str]) -> tuple[Options, bool, list[str]]:
                 v, i = need_val("-e", body, args, i)
                 body = ""
                 if v == "tpu":
-                    raise ValueError("-e tpu is the JAX package's engine "
-                                     "(python -m fqzcomp5_tpu.cli); this "
-                                     "command runs -e cuda or -e host")
+                    raise ValueError(TPU_ENGINE_REFUSED)
                 if v not in ("auto", "cuda", "host"):
                     raise SystemExit(f"unknown engine '{v}'")
                 arg.engine = "host" if v == "host" else "cuda"

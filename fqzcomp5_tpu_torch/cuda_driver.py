@@ -13,6 +13,10 @@ blocks (``ops.adaptive_batch``), so every preset (-1..-9, the default,
 host, as in the JAX engine.  Archives are byte-identical to
 ``fqzcomp5_tpu -e tpu``.
 
+Every entry takes a ``mesh.Mesh`` where it takes a device and passes
+it down unchanged: the walks split their streams over it, and the
+archive's bytes stay the same.
+
 A device error propagates: nothing here falls back to the host codecs.
 Only two routes take them, both codec decisions: sections under
 MIN_DEVICE, and a job the fqz codec declines (a quality alphabet of 96
@@ -44,6 +48,7 @@ from fqzcomp5_tpu_torch.engine_cuda import (decode_o0_batch,
                                             encode_o1_batch_lazy)
 from fqzcomp5_tpu_torch.ops import adaptive_batch
 from fqzcomp5_tpu_torch.ops import backend as _bk
+from fqzcomp5_tpu_torch.mesh import Mesh
 
 WAVE = 16           # max blocks per wave
 MIN_DEVICE = 4096   # sections smaller than this stay on the host
@@ -161,7 +166,7 @@ class _RansWave:
     sub-streams)."""
 
     def __init__(self, datas: list[bytes], fixed_lens: list[int] | None,
-                 device: torch.device):
+                 device: torch.device | Mesh):
         self.datas = datas
         self.out_host: dict[int, bytes] = {}
         self.big_idx = [i for i, d in enumerate(datas)
@@ -346,7 +351,7 @@ def _adaptive_jobs_host(jobs):
     return outs
 
 
-def _adaptive_jobs(jobs, device: torch.device):
+def _adaptive_jobs(jobs, device: torch.device | Mesh):
     """Adaptive jobs of a segment: sections of at least MIN_DEVICE bytes
     encode in one cross-block batch on the device, smaller ones with the
     host codecs.  Declined jobs come back as None."""
@@ -505,7 +510,8 @@ def _section_tasks(learner, arg, blocks, sec, datas, results, device):
 
 
 def encode_wave_blocks(learner: MethodLearner, arg: Options,
-                       wave: list[fastq.FastqBatch], device: torch.device
+                       wave: list[fastq.FastqBatch],
+                       device: torch.device | Mesh
                        ) -> list[tuple[bytes, Timings]]:
     """Encode one wave of batches into serialized blocks (framing + CRC
     included).  SEQ and QUAL segments run in lockstep, so both
@@ -578,7 +584,7 @@ def encode_wave_blocks(learner: MethodLearner, arg: Options,
 
 
 def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
-                  device: torch.device) -> None:
+                  device: torch.device | Mesh) -> None:
     container.write_header(out_fp)
     idx = container.FileIndex()
     learner = MethodLearner()
@@ -621,13 +627,13 @@ def _batches(parser, blk_size: int):
 
 
 def encode_file(in_path, out_fp: BinaryIO, arg: Options, t: Timings,
-                device: torch.device) -> None:
+                device: torch.device | Mesh) -> None:
     parser = fastq.Parser(fastq.open_input(in_path))
     encode_stream(_batches(parser, arg.blk_size), out_fp, arg, t, device)
 
 
 def encode_paired(in1, in2, out_fp: BinaryIO, arg: Options, t: Timings,
-                  device: torch.device) -> None:
+                  device: torch.device | Mesh) -> None:
     parser = fastq.InterleavedParser(
         fastq.open_input(in1), fastq.open_input(in2))
     encode_stream(_batches(parser, arg.blk_size), out_fp, arg, t, device)
@@ -749,7 +755,7 @@ def _split_block(raw: bytes, file_version: int):
 
 
 def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
-                device: torch.device, *, tables: str = "lut") -> None:
+                device: torch.device | Mesh, *, tables: str = "lut") -> None:
     """Decode an archive, writing batches through `writer`.  `tables`
     picks the rANS decode walks' table form ("lut" or "boundary", see
     engine_cuda.decode_o0_batch)."""

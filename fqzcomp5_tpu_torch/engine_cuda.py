@@ -23,6 +23,11 @@ boundary tables the JAX engine's FQZ5_DEC_V3 route builds from them
 dense order-1 tables for each shift group whose alphabet has 1 to 64
 symbols; a wider group walks its s3 LUTs, as the JAX route takes its
 scan there.
+
+Every batch entry takes a ``mesh.Mesh`` in place of a device: its
+streams (rows) split into contiguous ranges, one a mesh device, each
+walked on its device, and the results meet on the host.
+The bytes do not change.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from fqzcomp5_tpu_torch.ops import (backend, rans_bnd_torch, rans_cuda_bnd,
                                     rans_cuda_dec)
 from fqzcomp5_tpu_torch.ops.rans_torch import (MASK12, RANS_L, TF_SHIFT,
                                                tables_from_numpy)
+from fqzcomp5_tpu_torch.mesh import Mesh, split_rows
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -120,7 +126,7 @@ class _LazyO0:
     int32 copied back per stream); fetch(idxs) copies back only the
     requested winners' words."""
 
-    def __init__(self, datas: list[bytes], device: torch.device):
+    def __init__(self, datas: list[bytes], device: torch.device | Mesh):
         self._sizes: list[int] | None = None
         self._tabs: list[bytes] = []
         self._lz = None
@@ -140,11 +146,14 @@ class _LazyO0:
         plane = np.empty((B, Tmax * 32), np.uint8)
         for b, d in enumerate(datas):
             plane[b, :len(d)] = np.frombuffer(d, np.uint8)
-        self._lz = backend.encode_u8_lazy(
-            _to(plane.reshape(B, Tmax, 32), device), _to(lens, device),
-            tables_from_numpy(np.stack(freq_rows), "freqs",
-                              shift=TF_SHIFT, device=device),
-            TF_SHIFT)
+        plane = plane.reshape(B, Tmax, 32)
+        freqs = np.stack(freq_rows)
+        self._lz = backend.LazyFlat.join([
+            backend.encode_u8_lazy(
+                _to(plane[lo:hi], dev), _to(lens[lo:hi], dev),
+                tables_from_numpy(freqs[lo:hi], "freqs", shift=TF_SHIFT,
+                                  device=dev), TF_SHIFT)
+            for dev, lo, hi in split_rows(device, B)])
 
     @property
     def sizes(self) -> list[int]:
@@ -173,11 +182,12 @@ class _LazyO0:
 
 
 def encode_o0_batch_lazy(datas: list[bytes],
-                         device: torch.device) -> _LazyO0:
+                         device: torch.device | Mesh) -> _LazyO0:
     return _LazyO0(datas, device)
 
 
-def encode_o0_batch(datas: list[bytes], device: torch.device) -> list[bytes]:
+def encode_o0_batch(datas: list[bytes],
+                    device: torch.device | Mesh) -> list[bytes]:
     """rans_compress_O0_32x16 for many streams in one walk."""
     return _LazyO0(datas, device).fetch_all()
 
@@ -225,7 +235,7 @@ class _LazyO1:
     their frequency shift (10 or 12), one walk per group.  Every stream
     walks on the device, whatever its alphabet."""
 
-    def __init__(self, datas: list[bytes], device: torch.device):
+    def __init__(self, datas: list[bytes], device: torch.device | Mesh):
         self._sizes: list[int] | None = None
         # per shift group: (idxs, LazyFlat, {i: head}, {i: tail bytes})
         self._groups: list[tuple] = []
@@ -258,10 +268,14 @@ class _LazyO1:
             flat[g, 1:isz] = chunks.T[:-1] * 256 + chunks.T[1:]
             flat[g, isz:] = _NOP_O1
         freqs = np.stack([preps[i][1] for i in idxs])  # (G, 256, 256)
-        lz = backend.encode_flat_lazy(
-            _to(flat, device),
-            tables_from_numpy(freqs, "freqs", shift=shift, device=device),
-            shift, R0=_to(R0.view(np.int32), device))
+        R0 = R0.view(np.int32)
+        lz = backend.LazyFlat.join([
+            backend.encode_flat_lazy(
+                _to(flat[lo:hi], dev),
+                tables_from_numpy(freqs[lo:hi], "freqs", shift=shift,
+                                  device=dev),
+                shift, R0=_to(R0[lo:hi], dev))
+            for dev, lo, hi in split_rows(device, G)])
         heads = {i: preps[i][0] for i in idxs}
         self._groups.append((idxs, lz, heads, tailbs))
 
@@ -304,11 +318,12 @@ class _LazyO1:
 
 
 def encode_o1_batch_lazy(datas: list[bytes],
-                         device: torch.device) -> _LazyO1:
+                         device: torch.device | Mesh) -> _LazyO1:
     return _LazyO1(datas, device)
 
 
-def encode_o1_batch(datas: list[bytes], device: torch.device) -> list[bytes]:
+def encode_o1_batch(datas: list[bytes],
+                    device: torch.device | Mesh) -> list[bytes]:
     """rans_compress_O1_32x16 for many streams (one walk per shift)."""
     return _LazyO1(datas, device).fetch_all()
 
@@ -344,7 +359,7 @@ def _check_tables(tables: str, out_szs: list[int]) -> None:
 
 
 def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
-                    device: torch.device, *, lazy: bool = False,
+                    device: torch.device | Mesh, *, lazy: bool = False,
                     tables: str = "lut"):
     """Batched order-0 decode over the given table form ("lut" or
     "boundary").  With lazy=True, returns a zero-argument finisher: the
@@ -370,23 +385,28 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     R0, words = _word_rows(bodies)
     t_real = np.array([sz // 32 for sz in out_szs], np.int32)
     Tmax = max(int(t_real.max()), 1)
-    args = (_to(words.view(np.int16), device),
-            _to(R0.view(np.int32), device))
+    words, R0 = words.view(np.int16), R0.view(np.int32)
     if tables == "boundary":
         tab, f0, S, packed = rans_bnd_torch.o0_tables(s3s)
         decode_o0_batch.bnd_bytes += tab.nbytes + f0.nbytes
-        syms_d, Rf_d, _ = rans_cuda_bnd.decode_bnd_o0(
-            *args, _to(tab, device), _to(f0, device), _to(t_real, device),
-            Tmax, S, packed=packed)
     else:
         decode_o0_batch.s3_bytes += s3s.nbytes
-        syms_d, Rf_d = rans_cuda_dec.decode_o0(
-            *args, tables_from_numpy(s3s, "s3", device=device),
-            _to(t_real, device), Tmax)
+    parts = []   # (syms, Rf) of each row range, on its device
+    for dev, lo, hi in split_rows(device, B):
+        args = (_to(words[lo:hi], dev), _to(R0[lo:hi], dev))
+        if tables == "boundary":
+            parts.append(rans_cuda_bnd.decode_bnd_o0(
+                *args, _to(tab[lo:hi], dev), _to(f0[lo:hi], dev),
+                _to(t_real[lo:hi], dev), Tmax, S, packed=packed)[:2])
+        else:
+            parts.append(rans_cuda_dec.decode_o0(
+                *args, tables_from_numpy(s3s[lo:hi], "s3", device=dev),
+                _to(t_real[lo:hi], dev), Tmax))
 
     def _finish():
-        syms = syms_d.cpu().numpy()
-        Rf = Rf_d.cpu().numpy().view(np.uint32)
+        syms = np.concatenate([p[0].cpu().numpy() for p in parts])
+        Rf = np.concatenate([p[1].cpu().numpy()
+                             for p in parts]).view(np.uint32)
         out = []
         for b, sz in enumerate(out_szs):
             full = syms[b, :sz // 32].reshape(-1)
@@ -401,7 +421,7 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
 
 
 def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
-                    device: torch.device, *, lazy: bool = False,
+                    device: torch.device | Mesh, *, lazy: bool = False,
                     tables: str = "lut"):
     """Batched order-1 decode (lazy, tables: see decode_o0_batch).
     Streams group by shift.  A "lut" group uploads its full s3 tables
@@ -437,34 +457,40 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         R0, words = _word_rows([parsed[i][2] for i in idxs])
         t_real = np.array([out_szs[i] // 32 for i in idxs], np.int32)
         Tmax = max(int(t_real.max()), 1)
-        args = (_to(words.view(np.int16), device),
-                _to(R0.view(np.int32), device))
         freqs = (rans_bnd_torch.freqs_from_s3(s3s, shift)
                  if tables == "boundary" else None)
         A = 0 if freqs is None else int(freqs.any(axis=(0, 1)).sum())
-        if 0 < A <= rans_bnd_torch.DENSE_MAX_A:
+        dense = 0 < A <= rans_bnd_torch.DENSE_MAX_A
+        if dense:
             tab, alphabet, A, A1, last0 = \
                 rans_bnd_torch.build_o1_dense_tables(freqs, shift)
             decode_o1_batch.bnd_bytes += tab.nbytes
-            dsyms, Rf_d, ptrf_d = rans_cuda_bnd.decode_dense_o1(
-                *args, _to(tab, device), _to(t_real, device), Tmax, shift,
-                A, A1, last0)
-            # dense indices back to bytes
-            alpha = _to(alphabet.astype(np.uint8), device)
-            res = (alpha[dsyms.to(torch.int32)], Rf_d, ptrf_d)
         else:
             decode_o1_batch.s3_bytes += s3s.nbytes
-            res = rans_cuda_dec.decode_o1(
-                *args, tables_from_numpy(s3s, "s3", device=device),
-                _to(t_real, device), Tmax, shift)
-        groups.append((shift, idxs, words, s3s, res))
+        parts = []   # (syms, Rf, ptrf) of each row range, on its device
+        for dev, lo, hi in split_rows(device, len(idxs)):
+            args = (_to(words[lo:hi].view(np.int16), dev),
+                    _to(R0[lo:hi].view(np.int32), dev))
+            if dense:
+                dsyms, Rf_d, ptrf_d = rans_cuda_bnd.decode_dense_o1(
+                    *args, _to(tab[lo:hi], dev), _to(t_real[lo:hi], dev),
+                    Tmax, shift, A, A1, last0)
+                # dense indices back to bytes
+                alpha = _to(alphabet.astype(np.uint8), dev)
+                parts.append((alpha[dsyms.to(torch.int32)], Rf_d, ptrf_d))
+            else:
+                parts.append(rans_cuda_dec.decode_o1(
+                    *args, tables_from_numpy(s3s[lo:hi], "s3", device=dev),
+                    _to(t_real[lo:hi], dev), Tmax, shift))
+        groups.append((shift, idxs, words, s3s, parts))
 
     def _finish():
         out = [b""] * B
-        for shift, idxs, words, s3s, (syms_d, Rf_d, ptrf_d) in groups:
-            syms = syms_d.cpu().numpy()
-            Rf = Rf_d.cpu().numpy().view(np.uint32)
-            ptrf = ptrf_d.cpu().numpy()
+        for shift, idxs, words, s3s, parts in groups:
+            syms, Rf, ptrf = (np.concatenate([p[k].cpu().numpy()
+                                              for p in parts])
+                              for k in range(3))
+            Rf = Rf.view(np.uint32)
             tot = 1 << shift
             mask = tot - 1
             for g, i in enumerate(idxs):

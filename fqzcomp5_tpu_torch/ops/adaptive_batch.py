@@ -40,6 +40,7 @@ from fqzcomp5_tpu_torch.ops.rc_torch import (cap_for, finish_events,
                                              init_state)
 from fqzcomp5_tpu_torch.ops.seq_device_encode import (FAM_SEQ, FAM_STATE,
                                                       build_events)
+from fqzcomp5_tpu_torch.mesh import Mesh, first_device, split_rows
 
 JOB_OFF = 1 << 32        # > any local model id (4^14 seq ctx, 2^16+6 fqz)
 CHUNK_T = 1 << 22        # pass-3 steps per kernel launch
@@ -89,11 +90,12 @@ class DevTriples:
     def add(self, cf: torch.Tensor, tot: torch.Tensor, posn: np.ndarray,
             cell: np.ndarray) -> None:
         """Scatter a bucket's flat plane cells `cell` to event positions
-        `posn`."""
+        `posn`.  The plane may lie on another device (a mesh's range):
+        its cells are gathered there and copied here."""
         p = torch.from_numpy(posn).to(self.device)
-        c = torch.from_numpy(cell).to(self.device)
-        self.cf[p] = cf.reshape(-1)[c]
-        self.tot[p] = tot.reshape(-1)[c]
+        c = torch.from_numpy(cell).to(cf.device)
+        self.cf[p] = cf.reshape(-1)[c].to(self.device)
+        self.tot[p] = tot.reshape(-1)[c].to(self.device)
 
 
 def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
@@ -107,11 +109,12 @@ def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
                     np.where(ulm == MID_SEL, msel[ujob], 2)).astype(np.int32)
 
 
-def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples) -> None:
+def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples,
+                     device: torch.device | Mesh) -> None:
     """Pass 2 for the whole batch: group rows per family across jobs,
-    evolve each family's buckets on the device, scatter the triples to
-    event order in `dev`."""
-    device = dev.device
+    evolve each family's buckets on `device` (a device, or a Mesh over
+    which each bucket plane's rows split), scatter the triples to event
+    order in `dev`."""
     gmid = jobvec * JOB_OFF + mid
     for F in (F_T4, F_T2, F_N128, F_W256):
         sel = np.flatnonzero(fam == F)
@@ -128,7 +131,7 @@ def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples) -> None:
         elif F == F_W256:
             def run(sp, ct, r):
                 ms = torch.full((len(r),), 256, dtype=torch.int32,
-                                device=device)
+                                device=sp.device)
                 return model_cuda.evolve_256(sp, ct, ms)
             fqz_model_torch.evolve_grouped(g, run, device, **kw)
         else:
@@ -138,7 +141,7 @@ def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples) -> None:
 
             def run_on(walk):
                 def run(sp, ct, r):
-                    ms = torch.from_numpy(ms_rows[r]).to(device)
+                    ms = torch.from_numpy(ms_rows[r]).to(sp.device)
                     return walk(sp, ct, ms)
                 return run
             wide = ms_rows > 128
@@ -152,42 +155,80 @@ def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples) -> None:
                     rows=np.flatnonzero(~wide), **kw)
 
 
+class _RcRange:
+    """Pass 3 of one range of streams on one device: stream b codes
+    cf/tot[starts[b] : starts[b] + lens[b]] of this range's slice."""
+
+    def __init__(self, cf, tot, starts, lens):
+        self.cf, self.tot = cf, tot
+        self.starts, self.lens = starts, lens
+        self.state = init_state(len(starts), cf.device)
+        self.parts: list[list[bytes]] = [[] for _ in starts]
+        self.ff_max = 0
+        self.longest = int(lens.max())
+
+    def launch(self, t0: int) -> None:
+        """The chunk of steps [t0, t0 + CHUNK_T) of every stream."""
+        dev = self.cf.device
+        n = np.clip(self.lens - t0, 0, CHUNK_T)
+        self.cap = cap_for(int(n.max()), self.ff_max)
+        off = torch.from_numpy(self.starts + np.minimum(t0, self.lens)).to(dev)
+        self.out, self.totals, self.state = rc_cuda.encode_walk(
+            self.cf, self.tot, off,
+            torch.from_numpy(n.astype(np.int32)).to(dev), self.state,
+            self.cap)
+
+    def collect(self) -> None:
+        """Copy the launched chunk's bytes back."""
+        totals = self.totals.cpu().numpy()
+        if int(totals.max()) > self.cap:
+            raise RuntimeError(f"range coder emitted {int(totals.max())} "
+                               f"bytes into room for {self.cap}")
+        by = self.out[:, :max(int(totals.max()), 1)].cpu().numpy()
+        for b, part in enumerate(self.parts):
+            part.append(by[b, :totals[b]].tobytes())
+        self.ff_max = int(self.state[3].max())
+
+    def finish(self) -> list[bytes]:
+        tails = finish_events(self.state)
+        return [b"".join(p) + t for p, t in zip(self.parts, tails)]
+
+
 def rc_walk(cf: torch.Tensor, tot: torch.Tensor, starts: np.ndarray,
-            lens: np.ndarray) -> list[bytes]:
+            lens: np.ndarray, device=None) -> list[bytes]:
     """Pass 3: the range-coder payload of every stream.  Stream b codes
     cf/tot[starts[b] : starts[b] + lens[b]].  All streams walk together
     in launches of CHUNK_T steps with the coder state carried; each
     launch's bytes are copied back, and the five finish_encode
     shift_lows run on the host.  An empty stream is just those five
-    shift_lows from the initial state."""
-    device = cf.device
-    B = len(starts)
-    state = init_state(B, device)
-    parts: list[list[bytes]] = [[] for _ in range(B)]
-    ff_max = 0
-    longest = int(lens.max()) if B else 0
+    shift_lows from the initial state.
+
+    device (default cf's device) may be a Mesh: the streams split into
+    ranges, and each range walks its own slice of cf/tot, the span of
+    its streams, on its device with its starts rebased to that slice.
+    Every range's chunk is launched before any is copied back."""
+    walks = []
+    for dev, lo, hi in split_rows(cf.device if device is None else device,
+                                  len(starts)):
+        st, ln = starts[lo:hi], lens[lo:hi]
+        a, b = int(st.min()), int((st + ln).max())
+        walks.append(_RcRange(cf[a:b].to(dev), tot[a:b].to(dev), st - a,
+                              ln))
+    longest = int(lens.max()) if len(lens) else 0
     for t0 in range(0, longest, CHUNK_T):
-        n = np.clip(lens - t0, 0, CHUNK_T)
-        cap = cap_for(int(n.max()), ff_max)
-        off = torch.from_numpy(starts + np.minimum(t0, lens)).to(device)
-        out, totals, state = rc_cuda.encode_walk(
-            cf, tot, off, torch.from_numpy(n.astype(np.int32)).to(device),
-            state, cap)
-        totals = totals.cpu().numpy()
-        if int(totals.max()) > cap:
-            raise RuntimeError(f"range coder emitted {int(totals.max())} "
-                               f"bytes into room for {cap}")
-        by = out[:, :max(int(totals.max()), 1)].cpu().numpy()
-        for b in range(B):
-            parts[b].append(by[b, :totals[b]].tobytes())
-        ff_max = int(state[3].max())
-    tails = finish_events(state)
-    return [b"".join(parts[b]) + tails[b] for b in range(B)]
+        live = [w for w in walks if w.longest > t0]
+        for w in live:
+            w.launch(t0)
+        for w in live:
+            w.collect()
+    return [pay for w in walks for pay in w.finish()]
 
 
-def encode_adaptive_batch(jobs, device: torch.device) -> list[bytes | None]:
+def encode_adaptive_batch(jobs, device: torch.device | Mesh
+                          ) -> list[bytes | None]:
     """Encode many adaptive-codec jobs in batched three-pass runs on
-    `device`.
+    `device`.  Under a Mesh, pass 1 and the triples stay on its first
+    device, and passes 2 and 3 split their rows and streams over it.
 
     jobs: ('fqz', qual, lens, flags, seq_buf, strat) or ('seq', seq_buf,
     lens, both, slevel) tuples.  Returns each job's complete section
@@ -209,8 +250,9 @@ def encode_adaptive_batch(jobs, device: torch.device) -> list[bytes | None]:
     return outs
 
 
-def _encode_chunk(jobs, device: torch.device) -> list[bytes | None]:
-    preps = [_prep_job(j, device) for j in jobs]
+def _encode_chunk(jobs, device: torch.device | Mesh) -> list[bytes | None]:
+    first = first_device(device)
+    preps = [_prep_job(j, first) for j in jobs]
     live = [k for k, p in enumerate(preps) if p is not None]
     outs: list = [None] * len(jobs)
     if not live:
@@ -224,15 +266,16 @@ def _encode_chunk(jobs, device: torch.device) -> list[bytes | None]:
     sym = np.concatenate([p[3] for p in preps])
     enc = np.concatenate([p[4] for p in preps])
 
-    dev = DevTriples(total, device)
-    _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps], dev)
+    dev = DevTriples(total, first)
+    _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps], dev,
+                     device)
     cf, tot = dev.cf, dev.tot
     if not enc.all():
-        keep = torch.from_numpy(enc).to(device)
+        keep = torch.from_numpy(enc).to(first)
         cf, tot = cf[keep], tot[keep]
     n_enc = np.array([int(p[4].sum()) for p in preps], np.int64)
     starts = np.concatenate(([0], np.cumsum(n_enc)[:-1]))
-    payloads = rc_walk(cf, tot, starts, n_enc)
+    payloads = rc_walk(cf, tot, starts, n_enc, device)
     for k, p, pay in zip(live, preps, payloads):
         outs[k] = p[0] + pay
     return outs

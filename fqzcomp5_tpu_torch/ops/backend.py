@@ -35,20 +35,34 @@ class LazyFlat:
     The trial waves need every candidate's compressed size to pick a
     winner, but only the winners' bytes.  ``nwords()`` copies one int32
     per stream to the host; ``fetch(idxs)`` copies only the requested
-    streams' compact words, each a slice of the walk's output."""
+    streams' compact words, each a slice of the walk's output.
+
+    A walk split over a mesh is one LazyFlat of parts (``join``): part k
+    holds rows [base_k, base_k + rows) on its own device.  The parts'
+    results never meet on one device: each is copied to the host."""
 
     def __init__(self, Rf: torch.Tensor, words: torch.Tensor,
                  nwords: torch.Tensor):
-        self._Rf = Rf
-        self._words = words
-        self._nw_dev = nwords
+        self._parts = [(Rf, words, nwords)]
+        self._bases = [0]
         self._nw: np.ndarray | None = None
+
+    @classmethod
+    def join(cls, parts: list[LazyFlat]) -> LazyFlat:
+        """One LazyFlat of consecutive row ranges, in order."""
+        lz = parts[0]
+        for p in parts[1:]:
+            base = lz._bases[-1] + lz._parts[-1][0].shape[0]
+            lz._parts += p._parts
+            lz._bases += [base + b for b in p._bases]
+        return lz
 
     def nwords(self) -> np.ndarray:
         """(B,) emitted-word count per stream (payload size is tables +
         128 state bytes + 2 * nwords)."""
         if self._nw is None:
-            self._nw = self._nw_dev.cpu().numpy().astype(np.int64)
+            self._nw = np.concatenate([nw.cpu().numpy().astype(np.int64)
+                                       for _, _, nw in self._parts])
         return self._nw
 
     def prefetch(self, idxs) -> None:
@@ -60,22 +74,29 @@ class LazyFlat:
         if not sel:
             return {}
         nw = self.nwords()
-        cap = self._words.shape[1]
-        flat = torch.cat([self._words[i, cap - int(nw[i]):] for i in sel])
-        flat = flat.cpu().numpy().view(np.uint16)
-        rows = torch.tensor(sel, device=self._Rf.device)
-        Rf = self._Rf.index_select(0, rows).cpu().numpy().view(np.uint32)
+        part = np.searchsorted(self._bases, sel, side="right") - 1
         out = {}
-        off = 0
-        for j, i in enumerate(sel):
-            n = int(nw[i])
-            out[i] = (Rf[j], flat[off:off + n])
-            off += n
+        for k, (Rf_d, words, _) in enumerate(self._parts):
+            mine = [i for i, p in zip(sel, part) if p == k]
+            if not mine:
+                continue
+            base = self._bases[k]
+            cap = words.shape[1]
+            flat = torch.cat([words[i - base, cap - int(nw[i]):]
+                              for i in mine])
+            flat = flat.cpu().numpy().view(np.uint16)
+            rows = torch.tensor([i - base for i in mine], device=Rf_d.device)
+            Rf = Rf_d.index_select(0, rows).cpu().numpy().view(np.uint32)
+            off = 0
+            for j, i in enumerate(mine):
+                n = int(nw[i])
+                out[i] = (Rf[j], flat[off:off + n])
+                off += n
         return out
 
     def fetch_all(self) -> list[tuple[np.ndarray, np.ndarray]]:
         """(Rf, compact words) of every stream, in stream order."""
-        B = self._Rf.shape[0]
+        B = len(self.nwords())
         got = self.fetch(range(B))
         return [got[i] for i in range(B)]
 

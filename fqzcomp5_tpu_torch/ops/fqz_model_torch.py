@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fqzcomp5_tpu_torch.mesh import Mesh, split_rows
+
 K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel normalisation bound
 TINY_MAX = 255                # TinyModel: halve at pre-bump tot >= 255
 
@@ -287,17 +289,20 @@ def _concat_arange(seg: np.ndarray) -> np.ndarray:
             - np.repeat(np.cumsum(seg) - seg, seg))
 
 
-def evolve_grouped(g, run, device: torch.device, rows=None, collect=None,
-                   posmap=None):
+def evolve_grouped(g, run, device: torch.device | Mesh, rows=None,
+                   collect=None, posmap=None):
     """Pass 2 over a CSR-grouped stream, contexts bucketed by count.
 
     Each power-of-4 count bucket (16, 64, 256, ...) becomes one (rows,
     tb) uint8 symbol plane on `device` -- padded cells stay within about
     4x the events whatever the skew (fqz_model_jax.evolve_grouped).
+    `device` may be a fqzcomp5_tpu_torch.mesh.Mesh: each plane's rows
+    then split over it, every range launched before any result is read.
 
     g: group_stream result.  run(plane, counts, rows) -> (cf, tot) (C,
     tb) int32 device tensors; `rows` are the bucket's row indices into
-    g's uniq, for per-row alphabets.  rows: optional subset of row
+    g's uniq, for per-row alphabets; make any other tensor run needs on
+    plane's device.  rows: optional subset of row
     indices to evolve.  collect: optional collector; each bucket's
     results go to collect.add(cf, tot, posn, cell) -- event positions
     and flat plane cells -- and stay on the device.  posmap: optional
@@ -329,19 +334,27 @@ def evolve_grouped(g, run, device: torch.device, rows=None, collect=None,
                 raise ValueError("model symbols exceed a byte")
             sp = np.zeros(len(sel) * tbe, np.uint8)
             sp[cell] = vals
-            cf, tt = run(
-                torch.from_numpy(sp.reshape(len(sel), tbe)).to(device),
-                torch.from_numpy(seg.astype(np.int32)).to(device), r)
+            sp = sp.reshape(len(sel), tbe)
+            seg32 = seg.astype(np.int32)
             posn = order[src]
-            if collect is not None:
-                if posmap is not None:
-                    posn = posmap[posn]
-                collect.add(cf, tt, posn, cell)
-            else:
-                cf = cf.reshape(-1).cpu().numpy().view(np.uint32)[cell]
-                out[0][posn] = cf >> 16
-                out[1][posn] = cf & 0xFFFF
-                out[2][posn] = tt.reshape(-1).cpu().numpy()[cell]
+            if collect is not None and posmap is not None:
+                posn = posmap[posn]
+            # a range of rows owns a contiguous run of the events
+            ev_end = np.concatenate(([0], np.cumsum(seg)))
+            launched = [(run(torch.from_numpy(sp[lo:hi]).to(dev),
+                             torch.from_numpy(seg32[lo:hi]).to(dev),
+                             r[lo:hi]), lo, hi)
+                        for dev, lo, hi in split_rows(device, len(sel))]
+            for (cf, tt), lo, hi in launched:
+                e = slice(int(ev_end[lo]), int(ev_end[hi]))
+                c = cell[e] - lo * tbe
+                if collect is not None:
+                    collect.add(cf, tt, posn[e], c)
+                else:
+                    cfh = cf.reshape(-1).cpu().numpy().view(np.uint32)[c]
+                    out[0][posn[e]] = cfh >> 16
+                    out[1][posn[e]] = cfh & 0xFFFF
+                    out[2][posn[e]] = tt.reshape(-1).cpu().numpy()[c]
             done[sel] = True
         if tbe >= maxc or done.all():
             break
@@ -350,16 +363,18 @@ def evolve_grouped(g, run, device: torch.device, rows=None, collect=None,
 
 
 def triples_for_stream(ctx: np.ndarray, qm: np.ndarray, max_sym: int,
-                       step_inc: int = 16, device: torch.device | str = "cpu"):
+                       step_inc: int = 16,
+                       device: torch.device | str | Mesh = "cpu"):
     """Full pass 2 for one stream of a <= 128-symbol model family:
     group, evolve on `device`, un-sort.  Returns (cum, freq, tot) uint32
     arrays in stream order (fqz_model_jax.triples_for_stream)."""
     from fqzcomp5_tpu_torch.ops import model_cuda
 
-    dev = torch.device(device)
+    dev = device if isinstance(device, Mesh) else torch.device(device)
 
     def run(sp, ct, r):
-        ms = torch.full((len(r),), max_sym, dtype=torch.int32, device=dev)
+        ms = torch.full((len(r),), max_sym, dtype=torch.int32,
+                        device=sp.device)
         return model_cuda.evolve_128(sp, ct, ms, step_inc)
 
     return evolve_grouped(group_stream(ctx, qm), run, dev)

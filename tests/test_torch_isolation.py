@@ -68,8 +68,39 @@ def test_port_never_imports_jax(tmp_path):
     assert "MODULES fqzcomp5_tpu []" in r.stdout
 
 
-def _imports(path):
-    """Top-level package names of the modules a source file imports."""
+_RANK = textwrap.dedent("""
+    import sys
+    from fqzcomp5_tpu_torch.parallel import distributed
+    rc = distributed.main(sys.argv[1:])
+    for pkg in ("jax", "fqzcomp5_tpu"):
+        loaded = [m for m in sys.modules
+                  if m == pkg or m.startswith(pkg + ".")]
+        print("MODULES", pkg, loaded)
+    sys.exit(rc)
+""")
+
+
+def test_distributed_ranks_never_import_jax(tmp_path):
+    """Two ranks of the distributed entry, each on a local mesh of two
+    CPU slots, encode and then decode without importing either."""
+    from tests.test_torch_distributed import check_ok, make_fastq, run_ranks
+
+    src = tmp_path / "in.fastq"
+    data = make_fastq(src, n=400)
+    comp, out = tmp_path / "c.fqz5", tmp_path / "o.fastq"
+    for args in (["-1", "-b", 8 << 10, "--device", "cpu", src, comp],
+                 ["-d", comp, out]):
+        outs = run_ranks(2, args, env={"FQZ5_DIST_LOCAL_MESH": "1x2"},
+                         entry=["-c", _RANK])
+        check_ok(outs)
+        for _rc, stdout, _err in outs:
+            assert "MODULES jax []" in stdout
+            assert "MODULES fqzcomp5_tpu []" in stdout
+    assert out.read_bytes() == data
+
+
+def _modules(path):
+    """Names of the modules a source file imports (absolute imports)."""
     with open(path) as fp:
         tree = ast.parse(fp.read(), path)
     names = set()
@@ -78,7 +109,12 @@ def _imports(path):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
-    return {n.split(".")[0] for n in names}
+    return names
+
+
+def _imports(path):
+    """Top-level package names of the modules a source file imports."""
+    return {n.split(".")[0] for n in _modules(path)}
 
 
 def test_port_sources_never_import_the_jax_package():
@@ -86,6 +122,9 @@ def test_port_sources_never_import_the_jax_package():
     for d, _, names in os.walk(os.path.join(ROOT, "fqzcomp5_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    for name in ("pipeline", "distributed", "dist_cuda"):
+        assert os.path.join(ROOT, "fqzcomp5_tpu_torch", "parallel",
+                            name + ".py") in files
     bad = {f: _imports(f) & {"fqzcomp5_tpu", "jax"} for f in files}
     assert not {f: b for f, b in bad.items() if b}
 
@@ -115,3 +154,21 @@ def test_cuda_engine_without_gpu_fails_and_writes_nothing(tmp_path):
         assert r.stderr.startswith("ERROR:") and msg in r.stderr
         assert "Traceback" not in r.stderr
         assert not comp.exists()
+
+
+def test_kernel_layer_never_imports_the_scale_out_layer():
+    """The kernels, the engine and its driver take a mesh from the leaf
+    module fqzcomp5_tpu_torch.mesh (torch only); parallel/ imports them,
+    never the other way round."""
+    pkg = os.path.join(ROOT, "fqzcomp5_tpu_torch")
+    files = [os.path.join(pkg, n)
+             for n in ("mesh.py", "engine_cuda.py", "cuda_driver.py")]
+    files += [os.path.join(pkg, "ops", n)
+              for n in sorted(os.listdir(os.path.join(pkg, "ops")))
+              if n.endswith(".py")]
+    assert len(files) > 15
+    bad = {f: [m for m in _modules(f)
+               if m.startswith("fqzcomp5_tpu_torch.parallel")]
+           for f in files}
+    assert not {f: b for f, b in bad.items() if b}
+    assert _modules(os.path.join(pkg, "mesh.py")) <= {"__future__", "torch"}
