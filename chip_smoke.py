@@ -74,12 +74,31 @@ Phases, each printed with its time; any failure exits non-zero:
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
      versions; in subprocesses started before phase 3, which run beside
      the card's phases), requiring equal archives.
-  6. scale   -- the scale-out paths (fqzcomp5_tpu_torch.parallel) on a
+  6. host-adaptive -- the host engine's per-block device route: the CLI's
+     -e host -5 with FQZ5_DEVICE_ADAPTIVE=1 on the corpus's first 100 MB
+     (one block: four one-job batches of about 48 MB) and on a 16 MB
+     prefix at -b 1000000 (16 blocks, trial and locked, the driver's 4
+     threads calling the route at once).  Each archive must equal the
+     native -e host encode of its prefix (in subprocesses started before
+     phase 3); evolve_128, evolve_256, tiny_evolve and rc_encode_walk
+     must launch and encode_walk must not; the 100 MB archive is decoded
+     with -e host and must equal its prefix.  Logs each run's wall, MB/s
+     and peak device memory beside the native run's wall.
+  7. daemon  -- the port's daemon, served by a subprocess of this script
+     (--daemon-serve) whose server must have loaded the kernel library
+     and left CUDA uninitialised: the corpus at -1 through it (cmp with
+     the e2e archive), its -d (cmp with the source) and again with
+     FQZ5_DEC_V3=1 forwarded; a -1 encode of a 4 MB prefix and a decode
+     at once, each equal to its direct run; five -1 encodes of the
+     prefix through the daemon and five as fresh processes, each wall
+     logged.  Every forked child records its launch counts, which must
+     show its path's kernels, and its first CUDA call's time.
+  8. scale   -- the scale-out paths (fqzcomp5_tpu_torch.parallel) on a
      mesh of every visible card, or of cuda:0 twice (1 x 2, its ranges one
      after another) when one is visible: the corpus at -1 over the mesh
      (cmp with the e2e phase's -1 archive), that archive decoded over the
-     mesh with both table forms (cmp with the source), and a 16 MB prefix
-     at -5 -b 500000 (about 32 blocks, two waves) over the mesh and on
+     mesh with both table forms (cmp with the source), and an 8 MB prefix
+     at -5 -b 250000 (about 32 blocks, two waves) over the mesh and on
      cuda:0 alone (cmp).  Then two ranks of the port's distributed entry on
      127.0.0.1 over gloo, -e cuda, each on cuda:{rank % cards}, started
      through --dist-rank: the corpus at -1 (cmp with the e2e archive; the
@@ -92,7 +111,7 @@ Phases, each printed with its time; any failure exits non-zero:
      later wave runs the locked methods only, so rank 1 must launch
      some); wall seconds and MB/s are
      logged, one card's numbers when one card is visible.
-  7. corrupt -- 8 seeded mutations each of a -1 and a -3 archive (byte
+  9. corrupt -- 8 seeded mutations each of a -1 and a -3 archive (byte
      stomps that reach the rANS payloads, an absurd output size,
      truncations), each decoded through the CLI on the card with both
      table forms in a subprocess of its own: each must exit 0, or 1 with
@@ -115,11 +134,19 @@ DIR/<preset>-boundary; default build/profile/) and prints the device's busy time
 and idle share, the kernels' device times, the host functions that take
 the most time and the order-1 decode and model-evolution launch shapes.
 
-    python3 chip_smoke.py --scale
+    python3 chip_smoke.py --only PHASE[,PHASE...]    (--scale: --only scale)
 
 builds the kernels, makes the same corpus, encodes it at -1 through the
-CLI and runs only the scale phase against that archive, on a mesh of
-every visible card (for a host with several).
+CLI and runs only the named phases of host-adaptive, daemon and scale
+(the scale phase on a mesh of every visible card, for a host with
+several).
+
+    python3 chip_smoke.py --timed-cli ARGS...
+    python3 chip_smoke.py --daemon-serve SOCK DIR
+
+run the port's CLI and print its seconds (the host-adaptive phase's
+native encodes), and serve the port's daemon with each child's launch
+counts written under DIR (the daemon phase's server).
 
     python3 chip_smoke.py --dist-rank ARGS...
 
@@ -167,11 +194,22 @@ CPU_ENCODE_TIMEOUT_S = 900
 # presets whose archive is decoded again through the boundary-table
 # walks, and the kernel each such decode must launch
 BOUNDARY = {"-1": "decode_bnd_o0", "-3": "decode_dense_o1"}
-# the scale phase: the -5 prefix (MB) and its block size (about 32
-# blocks, two waves), and each distributed rank's limit
-SCALE_PREFIX_MB = 16
-SCALE_BLK = 500_000
+# the scale phase: the -5 prefix (MB) and its block size (32 blocks, two
+# waves; at this size the whole smoke, host-adaptive and daemon phases
+# included, stays inside its time limit), and each distributed rank's
+# limit
+SCALE_PREFIX_MB = 8
+SCALE_BLK = 250_000
 DIST_TIMEOUT_S = 600
+# host-adaptive phase: (run, prefix MB, extra CLI arguments) of -e host -5
+# with FQZ5_DEVICE_ADAPTIVE=1: one whole -5 block; 16 blocks of 1 MB
+HOST_ADAPTIVE_RUNS = (("100 MB", 100, []),
+                      ("16 MB -b 1000000", 16, ["-b", "1000000"]))
+ADAPTIVE_KERNELS = ("evolve_128", "evolve_256", "tiny_evolve",
+                    "rc_encode_walk")
+# daemon phase: the prefix of its concurrent and start-up requests
+DAEMON_PREFIX_MB = 4
+STARTUP_RUNS = 5
 # corrupt archives a preset in the corrupt phase, and each decode's limit
 CORRUPT_SEEDS = 8
 CORRUPT_TIMEOUT_S = 300
@@ -2024,6 +2062,53 @@ def counted_kernels() -> dict:
             "rc_encode_walk": rc_cuda.encode_walk}
 
 
+class Counts:
+    """The nine kernels' launch counts and the decode batch functions'
+    calls and table bytes, read around each path: reset() just before
+    it, read() just after it.  launches totals every path read (and the
+    counts of the subprocesses added with take())."""
+
+    def __init__(self):
+        from fqzcomp5_tpu_torch import engine_cuda
+
+        self.counted = counted_kernels()
+        self.batches = {"decode_o0": engine_cuda.decode_o0_batch,
+                        "decode_o1": engine_cuda.decode_o1_batch}
+        self.launches = dict.fromkeys(self.counted, 0)
+
+    def reset(self) -> None:
+        for fn in self.counted.values():
+            fn.launches = 0
+        for fn in self.batches.values():
+            fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
+
+    def read(self, path: str, need, decoders) -> int:
+        """Counts of the path just run.  Every kernel in need must have
+        launched in it, and decoders[batch] wherever the decode handed
+        that batch function a batch.  Returns the table bytes uploaded."""
+        tables = {f"{name} {k}": getattr(fn, k) for name, fn in
+                  self.batches.items() for k in ("s3_bytes", "bnd_bytes")}
+        self.take(path, {name: fn.launches for name, fn in
+                         self.counted.items()},
+                  {name: fn.calls for name, fn in self.batches.items()},
+                  need, decoders, f"; table uploads {tables} bytes")
+        return sum(tables.values())
+
+    def take(self, path: str, got: dict, calls: dict, need, decoders,
+             note: str = "") -> None:
+        """Checks and totals the counts got (and batch calls) of a path
+        run here or in a subprocess."""
+        need = [*need, *(k for b, k in decoders.items() if calls.get(b))]
+        log(f"kernel launches in the {path} run: {got}; decode batches "
+            f"{calls}{note}")
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels of the {path} path never "
+                                 f"launched in its run: {missing}")
+        for k in self.launches:
+            self.launches[k] += got[k]
+
+
 def dist_rank(argv) -> int:
     """--dist-rank ARGS: one rank of the port's distributed entry
     (fqzcomp5_tpu_torch.parallel.distributed.main(ARGS)), then its
@@ -2096,7 +2181,7 @@ def scale_mesh(torch):
 
 
 def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
-          dist_args, reset, read, launches) -> None:
+          dist_args, counts: Counts) -> None:
     """The scale phase: the wave engine over `mesh` and under
     torch.distributed, each archive against one device's and each decode
     against the source.  comp1: the e2e phase's -1 archive of src; dev0:
@@ -2120,10 +2205,10 @@ def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
 
     arg1, _, _ = cli.parse_args(["-1", "-V"])
     comp = os.path.join(work, "mesh-1.fqz5")
-    reset()
+    counts.reset()
     timed("-1 encode over the mesh", nbytes,
           lambda: encode(src, comp, arg1, mesh))
-    read("scale -1 mesh encode", ["encode_walk"], {})
+    counts.read("scale -1 mesh encode", ["encode_walk"], {})
     same(comp, comp1)
     os.remove(comp)
     argd, _, _ = cli.parse_args(["-d", "-V"])
@@ -2136,9 +2221,9 @@ def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
                 cuda_driver.decode_file(fp, drivers.make_fastq_writer(o, argd),
                                         argd, cuda_driver.Timings(), mesh,
                                         tables=tables)
-        reset()
+        counts.reset()
         timed(f"-1 decode over the mesh ({tables} tables)", nbytes, decode)
-        read(f"scale -1 mesh decode ({tables})", need, decoders)
+        counts.read(f"scale -1 mesh decode ({tables})", need, decoders)
         same(src, out)
         os.remove(out)
 
@@ -2150,10 +2235,10 @@ def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
     c5m, c5 = (os.path.join(work, f"scale-5{k}.fqz5") for k in ("m", "1"))
     for dev, dst, what in ((mesh, c5m, "over the mesh"),
                            (dev0, c5, f"on {dev0} alone")):
-        reset()
+        counts.reset()
         timed(f"-5 -b {SCALE_BLK} encode of the {pbytes}-byte prefix {what}",
               pbytes, lambda: encode(pre, dst, arg5, dev))
-        read(f"scale -5 prefix {what}", dict(PATHS)["-5"], {})
+        counts.read(f"scale -5 prefix {what}", dict(PATHS)["-5"], {})
     same(c5m, c5)
     os.remove(c5m)
 
@@ -2166,8 +2251,8 @@ def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
         for st, ln in res:
             log(f"  rank {st['dist_stat']}: {json.dumps(st)}; kernel "
                 f"launches {json.dumps(ln)}")
-            for k in launches:
-                launches[k] += ln[k]
+            for k in counts.launches:
+                counts.launches[k] += ln[k]
         return res
 
     dcomp = os.path.join(work, "dist-1.fqz5")
@@ -2198,6 +2283,278 @@ def scale(src: str, nbytes: int, work: str, comp1: str, mesh, dev0,
     same(src, out)
     for p in (out, dcomp, dcomp5, c5, pre):
         os.remove(p)
+
+
+def timed_cli(argv) -> int:
+    """--timed-cli ARGS: runs the port's CLI on ARGS and prints its wall
+    seconds as the last line (the native encodes of the host-adaptive
+    phase, in subprocesses beside the card's phases)."""
+    sys.path.insert(0, ROOT)
+    from fqzcomp5_tpu_torch import cli
+
+    t1 = time.monotonic()
+    rc = cli.main(argv)
+    print(f"{time.monotonic() - t1:.3f}", flush=True)
+    return rc
+
+
+def start_host_encodes(src: str, work: str) -> list:
+    """For each of HOST_ADAPTIVE_RUNS, writes its prefix of src and
+    starts the native -e host encode of it (no FQZ5_DEVICE_ADAPTIVE) in a
+    subprocess (--timed-cli): the host-adaptive phase's references.
+    Returns [(run, prefix, argv, archive, Popen)]."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FQZ5_DEVICE_ADAPTIVE")}
+    jobs = []
+    for k, (what, mb, extra) in enumerate(HOST_ADAPTIVE_RUNS):
+        pre = os.path.join(work, f"host-adaptive{k}.fastq")
+        prefix_copy(src, pre, mb * 1_000_000)
+        argv = ["-e", "host", "-5", *extra, "-V", pre]
+        out = os.path.join(work, f"host-adaptive{k}.native.fqz5")
+        jobs.append((what, pre, argv, out, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--timed-cli", *argv,
+             out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return jobs
+
+
+def host_adaptive(work: str, jobs, counts: Counts) -> None:
+    """The host-adaptive phase: the CLI's -e host -5 with
+    FQZ5_DEVICE_ADAPTIVE=1 (each block's SEQ/FQZ trials sent to the card
+    as one-job batches, from the driver's 4 threads) on each of
+    HOST_ADAPTIVE_RUNS' prefixes.  Each archive must equal its native -e
+    host encode (start_host_encodes), the four adaptive kernels must have
+    launched and the rANS encode walk not; the first archive is decoded
+    with -e host and must equal its prefix."""
+    import torch
+
+    for k, (what, pre, argv, native_c, proc) in enumerate(jobs):
+        nbytes = os.path.getsize(pre)
+        comp = os.path.join(work, "host-adaptive.fqz5")
+        counts.reset()
+        torch.cuda.reset_peak_memory_stats()
+        os.environ["FQZ5_DEVICE_ADAPTIVE"] = "1"
+        try:
+            t1 = time.monotonic()
+            run_cli([*argv, comp])
+            sec = time.monotonic() - t1
+        finally:
+            del os.environ["FQZ5_DEVICE_ADAPTIVE"]
+        peak = torch.cuda.max_memory_allocated()
+        counts.read(f"host-adaptive {what}", ADAPTIVE_KERNELS, {})
+        if counts.counted["encode_walk"].launches:
+            raise AssertionError(f"host-adaptive {what}: the per-block route "
+                                 "launched the rANS encode walk")
+        out, err = proc.communicate(timeout=CPU_ENCODE_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"native -e host encode of {what} exited "
+                               f"{proc.returncode}: {err[-2000:]}")
+        same(comp, native_c)
+        log(f"host-adaptive {what}: {nbytes} -> {os.path.getsize(comp)} "
+            f"bytes; route {sec:.3f} s = {nbytes / sec / 1e6:.2f} MB/s, peak "
+            f"device memory {peak} bytes; native -e host "
+            f"{out.split()[-1]} s (a subprocess beside the card's phases); "
+            "archives equal")
+        if k == 0:
+            dec = os.path.join(work, "host-adaptive.out.fastq")
+            t1 = time.monotonic()
+            run_cli(["-e", "host", "-d", "-V", comp, dec])
+            same(pre, dec)
+            log(f"host-adaptive {what}: -e host decode "
+                f"{time.monotonic() - t1:.3f} s, equal to the prefix")
+            os.remove(dec)
+        for p in (comp, native_c, pre):
+            os.remove(p)
+
+
+def daemon_serve(sock: str, work: str) -> int:
+    """--daemon-serve SOCK DIR: the port's daemon on SOCK.  Before it
+    serves, prints one JSON line (whether _preload loaded the kernel
+    library and left CUDA uninitialised), and wraps the CLI's main so
+    that each forked child writes DIR/child-PID.json: its argv, seconds,
+    the first CUDA call's seconds (a 1-element allocation and a
+    synchronize, unless -e host), its kernels' launch counts and its
+    decode batches' calls.  The child leaves through os._exit, so the
+    record is written in the wrapper and not at exit."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from fqzcomp5_tpu_torch import cli, daemon, engine_cuda
+    from fqzcomp5_tpu_torch.ops import _build
+
+    daemon._preload()
+    print(json.dumps({"daemon_server": os.getpid(),
+                      "kernel_library_loaded": _build._lib is not None,
+                      "cuda_initialized": torch.cuda.is_initialized()}),
+          flush=True)
+    real = cli.main
+
+    def main(argv):
+        t0 = time.monotonic()
+        first = None
+        if "host" not in argv:
+            torch.empty(1, device="cuda")
+            torch.cuda.synchronize()
+            first = time.monotonic() - t0
+        try:
+            return real(argv)
+        finally:
+            rec = {"argv": list(argv), "first_cuda_s": first,
+                   "seconds": time.monotonic() - t0,
+                   "launches": {k: fn.launches
+                                for k, fn in counted_kernels().items()},
+                   "calls": {"decode_o0": engine_cuda.decode_o0_batch.calls,
+                             "decode_o1": engine_cuda.decode_o1_batch.calls}}
+            path = os.path.join(work, f"child-{os.getpid()}.json")
+            with open(path + ".tmp", "w") as fp:
+                json.dump(rec, fp)
+            os.replace(path + ".tmp", path)
+
+    cli.main = main
+    return daemon.serve(sock, quiet=True)
+
+
+def _child_records(work: str) -> list:
+    """The daemon children's records (daemon_serve) written so far; each
+    is removed once read."""
+    recs = []
+    for name in sorted(os.listdir(work)):
+        if name.startswith("child-") and name.endswith(".json"):
+            with open(os.path.join(work, name)) as fp:
+                recs.append(json.load(fp))
+            os.remove(os.path.join(work, name))
+    return recs
+
+
+def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
+                 counts: Counts) -> None:
+    """The daemon phase: the port's daemon (--daemon-serve, a subprocess)
+    on the card.  The corpus at -1 through it (equal to the e2e archive
+    comp1), its -d (equal to the source) and again with FQZ5_DEC_V3=1
+    forwarded; two concurrent requests (a -1 encode of a 4 MB prefix and
+    the decode of that prefix's archive), each equal to its direct run;
+    five -1 encodes of the prefix through it and five as fresh processes,
+    each wall time logged with the children's first CUDA call.  Every
+    child's launch counts must show its path's kernels."""
+    import threading
+
+    sys.path.insert(0, ROOT)
+    from fqzcomp5_tpu_torch import daemon
+
+    sock = os.path.join(work, "d.sock")
+    err_path = os.path.join(work, "daemon.err")
+    with open(err_path, "w") as err:
+        server = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--daemon-serve",
+             sock, work], cwd=ROOT, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+    dec_paths = {"decode_o0": "decode_o0", "decode_o1": "decode_o1"}
+
+    def check(what, rec, need, decoders):
+        counts.take(f"daemon {what} (child)", rec["launches"], rec["calls"],
+                    need, decoders,
+                    f"; first CUDA call {rec['first_cuda_s']} s, "
+                    f"child {rec['seconds']} s")
+
+    def job(what, argv, need, decoders, size):
+        t1 = time.monotonic()
+        rc = daemon.request(sock, argv)
+        sec = time.monotonic() - t1
+        if rc != 0:
+            raise RuntimeError(f"daemon {what}: {argv} exited {rc}")
+        rec, = _child_records(work)
+        check(what, rec, need, decoders)
+        log(f"daemon {what}: {sec:.3f} s = {size / sec / 1e6:.2f} MB/s")
+        return sec
+
+    try:
+        t1 = time.monotonic()
+        while not daemon.request(sock, None, op="ping"):
+            if server.poll() is not None or time.monotonic() - t1 > 600:
+                with open(err_path) as fp:
+                    raise RuntimeError(f"the daemon never answered: "
+                                       f"{fp.read()[-3000:]}")
+            time.sleep(0.2)
+        ready = json.loads(server.stdout.readline())
+        log(f"daemon: serving after {time.monotonic() - t1:.3f} s; {ready}")
+        if not ready["kernel_library_loaded"] or ready["cuda_initialized"]:
+            raise AssertionError("the daemon server must load the kernel "
+                                 "library and leave CUDA uninitialised")
+        comp = os.path.join(work, "daemon-1.fqz5")
+        out = os.path.join(work, "daemon.fastq")
+        job("-1 encode of the corpus", ["-1", "-V", src, comp],
+            ["encode_walk"], {}, nbytes)
+        same(comp, comp1)
+        job("-1 decode of the corpus", ["-d", "-V", comp, out], [],
+            dec_paths, nbytes)
+        same(src, out)
+        os.environ["FQZ5_DEC_V3"] = "1"
+        try:
+            job("-1 decode of the corpus, FQZ5_DEC_V3=1 forwarded",
+                ["-d", "-V", comp, out], [BOUNDARY["-1"]],
+                {"decode_o0": "decode_bnd_o0"}, nbytes)
+        finally:
+            del os.environ["FQZ5_DEC_V3"]
+        same(src, out)
+        for p in (comp, out):
+            os.remove(p)
+
+        pre = os.path.join(work, "daemon-prefix.fastq")
+        prefix_copy(src, pre, DAEMON_PREFIX_MB * 1_000_000)
+        direct = os.path.join(work, "daemon-direct.fqz5")
+        run_cli(["-1", "-V", pre, direct])
+        enc, dec = (os.path.join(work, f"daemon-{k}") for k in ("c", "o"))
+        rcs = {}
+        runs = {"encode": ["-1", "-V", pre, enc],
+                "decode": ["-d", "-V", direct, dec]}
+        threads = [threading.Thread(
+            target=lambda k=k: rcs.__setitem__(k, daemon.request(sock,
+                                                                 runs[k])))
+            for k in runs]
+        t1 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        sec = time.monotonic() - t1
+        if rcs != {"encode": 0, "decode": 0}:
+            raise RuntimeError(f"daemon concurrent requests exited {rcs}")
+        same(enc, direct)
+        same(dec, pre)
+        recs = _child_records(work)
+        for k, need, decoders in (("encode", ["encode_walk"], {}),
+                                  ("decode", [], dec_paths)):
+            rec, = [r for r in recs if r["argv"] == runs[k]]
+            check(f"concurrent {k}", rec, need, decoders)
+        log(f"daemon: a -1 encode and a decode of the {DAEMON_PREFIX_MB} MB "
+            f"prefix at once, {sec:.3f} s, each equal to its direct run")
+
+        walls = {"daemon": [], "fresh": []}
+        for _ in range(STARTUP_RUNS):
+            walls["daemon"].append(job(
+                f"-1 encode of the {DAEMON_PREFIX_MB} MB prefix",
+                ["-1", "-V", pre, enc], ["encode_walk"], {},
+                os.path.getsize(pre)))
+            same(enc, direct)
+        for _ in range(STARTUP_RUNS):
+            t1 = time.monotonic()
+            subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
+                            "-1", "-V", pre, enc], cwd=ROOT, check=True,
+                           timeout=CPU_ENCODE_TIMEOUT_S)
+            walls["fresh"].append(time.monotonic() - t1)
+            same(enc, direct)
+        log(f"daemon start-up: -1 encodes of the {DAEMON_PREFIX_MB} MB prefix "
+            f"through the daemon {[round(s, 3) for s in walls['daemon']]} s; "
+            f"as fresh processes {[round(s, 3) for s in walls['fresh']]} s")
+        for p in (pre, direct, enc, dec):
+            os.remove(p)
+    finally:
+        daemon.stop(sock)
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
 
 
 class LaunchShapes:
@@ -2422,53 +2779,52 @@ def profile_main(np, torch, levels: str, out_dir: str, decode: bool,
     return 0
 
 
-def scale_main(np, torch) -> int:
-    """--scale: only the scale phase, on every visible card: builds, makes
-    the corpus, encodes it at -1 through the CLI (the reference archive),
-    then runs scale() with each run's kernels required."""
+ONLY_PHASES = ("host-adaptive", "daemon", "scale")
+
+
+def only_main(np, torch, names) -> int:
+    """--only PHASE[,PHASE...] (--scale: --only scale): only those of
+    ONLY_PHASES, in that order, with each run's kernels required.  Builds,
+    makes the corpus and encodes it at -1 through the CLI (the daemon's and
+    the scale phase's reference archive).  The scale phase runs on a mesh
+    of every visible card."""
     from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import _build
 
     engine_cuda._lib()
     _build.lib()
-    counted = counted_kernels()
-    batches = (engine_cuda.decode_o0_batch, engine_cuda.decode_o1_batch)
-    launches = dict.fromkeys(counted, 0)
-
-    def reset():
-        for fn in counted.values():
-            fn.launches = 0
-        for fn in batches:
-            fn.calls = 0
-
-    def read(path, need, decoders):
-        got = {k: fn.launches for k, fn in counted.items()}
-        calls = {b.__name__.replace("_batch", ""): b.calls for b in batches}
-        need = [*need, *(k for b, k in decoders.items() if calls[b])]
-        log(f"kernel launches in the {path} run: {got}")
-        missing = [k for k in need if got[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels of the {path} path never "
-                                 f"launched in its run: {missing}")
-        for k, v in got.items():
-            launches[k] += v
-
-    work = tempfile.mkdtemp(prefix="fqz5_chip_scale_")
+    counts = Counts()
+    work = tempfile.mkdtemp(prefix="fqz5_chip_only_")
+    host_jobs = []
     try:
-        t0 = time.monotonic()
         src = os.path.join(work, "in.fastq")
         nbytes = make_corpus(src, CORPUS_MB, np)
+        if "host-adaptive" in names:
+            host_jobs = start_host_encodes(src, work)
         comp1 = os.path.join(work, "c-1.fqz5")
         t1 = time.monotonic()
         run_cli(["-1", "-V", src, comp1])
         log(f"-1 encode of the corpus through the CLI on cuda:0: "
             f"{time.monotonic() - t1:.3f} s")
-        scale(src, nbytes, work, comp1, scale_mesh(torch),
-              torch.device("cuda", 0), [], reset, read, launches)
-        phase("scale", t0)
+        for name in ONLY_PHASES:
+            if name not in names:
+                continue
+            t0 = time.monotonic()
+            if name == "host-adaptive":
+                host_adaptive(work, host_jobs, counts)
+            elif name == "daemon":
+                daemon_phase(src, nbytes, work, comp1, counts)
+            else:
+                scale(src, nbytes, work, comp1, scale_mesh(torch),
+                      torch.device("cuda", 0), [], counts)
+            phase(name, t0)
     finally:
+        for *_, p in host_jobs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"kernel launches of the scale phase: {json.dumps(launches)}")
+    log(f"kernel launches of {','.join(names)}: {json.dumps(counts.launches)}")
     return 0
 
 
@@ -2494,7 +2850,18 @@ def main() -> int:
                     help="with --walk-times or --profile: the checkout "
                     "whose fqzcomp5_tpu_torch is timed")
     ap.add_argument("--scale", action="store_true",
-                    help="only run the scale phase, on every visible card")
+                    help="only run the scale phase, on every visible card "
+                    "(--only scale)")
+    ap.add_argument("--only", metavar="PHASE[,PHASE]",
+                    help=f"only run these of {', '.join(ONLY_PHASES)}")
+    ap.add_argument("--timed-cli", nargs=argparse.REMAINDER,
+                    help="only run the port's CLI with these arguments and "
+                    "print its seconds (the host-adaptive phase's native "
+                    "encodes)")
+    ap.add_argument("--daemon-serve", nargs=2, metavar=("SOCK", "DIR"),
+                    help="only serve the port's daemon on SOCK, each child "
+                    "recording its launch counts under DIR (the daemon "
+                    "phase's server)")
     ap.add_argument("--dist-rank", nargs=argparse.REMAINDER,
                     help="only run one rank of the port's distributed entry "
                     "with these arguments (the scale phase's ranks)")
@@ -2507,6 +2874,10 @@ def main() -> int:
         return dist_rank(opts.dist_rank)
     if opts.cpu_encode:
         return cpu_encode(*opts.cpu_encode)
+    if opts.timed_cli is not None:
+        return timed_cli(opts.timed_cli)
+    if opts.daemon_serve:
+        return daemon_serve(*opts.daemon_serve)
 
     t0 = time.monotonic()
     import numpy as np
@@ -2525,9 +2896,14 @@ def main() -> int:
     log(smi)
     phase("device", t0)
 
-    if opts.scale:
+    if opts.scale or opts.only:
+        names = ["scale"] if opts.scale else opts.only.split(",")
+        unknown = set(names) - set(ONLY_PHASES)
+        if unknown:
+            log(f"ERROR: --only {opts.only}: no phase {sorted(unknown)}")
+            return 1
         sys.path.insert(0, ROOT)
-        return scale_main(np, torch)
+        return only_main(np, torch, names)
     if opts.walk_times or opts.profile:
         sys.path.insert(0, os.path.abspath(opts.root))
         from fqzcomp5_tpu_torch.ops import _build
@@ -2560,7 +2936,7 @@ def main() -> int:
     phase("build", t0)
 
     work = tempfile.mkdtemp(prefix="fqz5_chip_smoke_")
-    cpu_jobs = []
+    cpu_jobs = host_jobs = []
     try:
         t0 = time.monotonic()
         src = os.path.join(work, "in.fastq")
@@ -2570,6 +2946,7 @@ def main() -> int:
         # the CPU halves of the card-vs-CPU prefix encodes run in
         # subprocesses beside the kernels, adaptive and e2e phases
         cpu_jobs = start_cpu_encodes(src, work)
+        host_jobs = start_host_encodes(src, work)
 
         t0 = time.monotonic()
         dev = torch.device("cuda")
@@ -2583,35 +2960,8 @@ def main() -> int:
         walk_times(np, torch, dev)
         phase("kernels", t0)
 
-        counted = counted_kernels()
-        batches = {"decode_o0": engine_cuda.decode_o0_batch,
-                   "decode_o1": engine_cuda.decode_o1_batch}
-        launches = dict.fromkeys(counted, 0)
-
-        def reset():
-            for fn in counted.values():
-                fn.launches = 0
-            for fn in batches.values():
-                fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
-
-        def read(path, need, decoders):
-            """Counts of the path just run.  Every kernel in need must have
-            launched in it, and decoders[batch] wherever the decode handed
-            that batch function a batch."""
-            got = {name: fn.launches for name, fn in counted.items()}
-            calls = {name: fn.calls for name, fn in batches.items()}
-            need = [*need, *(k for b, k in decoders.items() if calls[b])]
-            tables = {f"{name} {k}": getattr(fn, k) for name, fn in
-                      batches.items() for k in ("s3_bytes", "bnd_bytes")}
-            log(f"kernel launches in the {path} run: {got}; decode batches "
-                f"{calls}; table uploads {tables} bytes")
-            missing = [k for k in need if got[k] == 0]
-            if missing:
-                raise AssertionError(f"kernels of the {path} path never "
-                                     f"launched in its run: {missing}")
-            for k, v in got.items():
-                launches[k] += v
-            return sum(tables.values())
+        counts = Counts()
+        launches = counts.launches
 
         t0 = time.monotonic()
         adaptive_vs_host(src, dev)
@@ -2619,27 +2969,28 @@ def main() -> int:
 
         t0 = time.monotonic()
         for lvl, runs in PATHS:
-            reset()
+            counts.reset()
             torch.cuda.reset_peak_memory_stats()
             with LaunchShapes(lvl):
                 comp, dec_s = e2e(src, nbytes, work, lvl)
             log(f"peak device memory in the {lvl} run: "
                 f"{torch.cuda.max_memory_allocated()} bytes")
-            lut_bytes = read(lvl, runs, {"decode_o0": "decode_o0",
-                                         "decode_o1": "decode_o1"})
+            lut_bytes = counts.read(lvl, runs, {"decode_o0": "decode_o0",
+                                                "decode_o1": "decode_o1"})
             if lvl in BOUNDARY:
-                reset()
+                counts.reset()
                 with LaunchShapes(f"{lvl} FQZ5_DEC_V3 decode"):
                     bnd_s = decode_boundary(src, comp, work)
-                bnd_bytes = read(f"{lvl} FQZ5_DEC_V3 decode", [BOUNDARY[lvl]],
-                                 {"decode_o0": "decode_bnd_o0"})
+                bnd_bytes = counts.read(f"{lvl} FQZ5_DEC_V3 decode",
+                                        [BOUNDARY[lvl]],
+                                        {"decode_o0": "decode_bnd_o0"})
                 log(f"decode {lvl}: s3-LUT walks {dec_s:.3f} s "
                     f"({nbytes / dec_s / 1e6:.2f} MB/s), tables {lut_bytes} "
                     f"bytes; boundary-table walks {bnd_s:.3f} s "
                     f"({nbytes / bnd_s / 1e6:.2f} MB/s), tables {bnd_bytes} "
                     "bytes; both match the source")
             if lvl == "-1":
-                comp1 = comp   # the scale phase's reference
+                comp1 = comp   # the daemon's and scale phase's reference
             else:
                 os.remove(comp)
         zero = [k for k, v in launches.items() if v == 0]
@@ -2651,15 +3002,22 @@ def main() -> int:
         phase("e2e", t0)
         t0 = time.monotonic()
         torch.cuda.empty_cache()
+        host_adaptive(work, host_jobs, counts)
+        phase("host-adaptive", t0)
+        t0 = time.monotonic()
+        daemon_phase(src, nbytes, work, comp1, counts)
+        phase("daemon", t0)
+        t0 = time.monotonic()
+        torch.cuda.empty_cache()
         scale(src, nbytes, work, comp1, scale_mesh(torch),
-              torch.device("cuda", 0), [], reset, read, launches)
+              torch.device("cuda", 0), [], counts)
         os.remove(comp1)
         phase("scale", t0)
         t0 = time.monotonic()
         corrupt_on_card(np, work)
         phase("corrupt", t0)
     finally:
-        for *_, p in cpu_jobs:
+        for *_, p in cpu_jobs + host_jobs:
             if p.poll() is None:
                 p.kill()
             p.wait()

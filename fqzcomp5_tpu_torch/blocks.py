@@ -8,8 +8,14 @@ Block layout (v1.1):
   seq     [u8 strat][u32 ulen][u32 clen][payload]
   qual    [u8 strat][u32 ulen][u32 clen][payload]   (0/0/0 for FASTA)
 
-The JAX package's FQZ5_DEVICE_ADAPTIVE route is not part of this copy:
-the adaptive codecs here are the native host codecs.
+The adaptive codecs (SEQ*, SEQ_CUSTOM, FQZ*) run the native host codecs,
+or, when encode_block is given a device (the CLI's -e host with
+FQZ5_DEVICE_ADAPTIVE set), encode each section as one job of the
+three-pass device decomposition on it (ops/seq_device_encode,
+ops/fqz_device_encode): the same bytes, except that a SEQ payload over
+the host codec's cap of len + 100 is kept.  A device error propagates;
+nothing falls back to the host codecs.  With arg.verify_device set,
+each device payload is decoded back through the native decoder first.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import struct
 import sys
 import zlib
+from typing import TYPE_CHECKING
 
 from fqzcomp5_tpu_torch.utils.lazy_np import np
 
@@ -27,6 +34,11 @@ from fqzcomp5_tpu_torch.constants import Method, Section, VERS_V11
 from fqzcomp5_tpu_torch.fastq import FastqBatch
 from fqzcomp5_tpu_torch.learning import MethodLearner
 from fqzcomp5_tpu_torch.options import Options
+
+if TYPE_CHECKING:  # the host codecs' route imports no torch
+    import torch
+
+    from fqzcomp5_tpu_torch.mesh import Mesh
 
 # rANS order per RANS* method (fqzcomp5.c:1994)
 _RANS_ORDERS = {
@@ -47,9 +59,61 @@ _TOK3_LEVEL = {  # (m - TOK3_3) * 2 + 3
 }
 
 
+def _decodes_back(decode, data: bytes) -> bool:
+    """Whether decode() gives data back (a decoder error is a no)."""
+    try:
+        return decode() == data
+    except ValueError:
+        return False
+
+
+def _seq_encode(data: bytes, lens, both: int, slevel: int, arg: Options,
+                device):
+    """The SEQ payload, on the host, or on `device` when one is given;
+    None where the host codec overflows its cap."""
+    if device is None:
+        try:
+            return host.seq_encode(data, lens, both, slevel)
+        except ValueError:
+            return None  # coder overflowed its cap on adversarial input
+    from fqzcomp5_tpu_torch.ops import seq_device_encode
+
+    out = seq_device_encode.encode_payload(data, lens, both, slevel, device)
+    if arg.verify_device and not _decodes_back(
+            lambda: host.seq_decode(out, lens, both, slevel, len(data)),
+            data):
+        raise ValueError("device SEQ payload failed native decode-back")
+    return out
+
+
+def _fqz_compress(data: bytes, fq: FastqBatch, strat_n: int, arg: Options,
+                  device):
+    """The fqz payload, on the host, or on `device` when one is given;
+    None where the codec declines the block."""
+    if device is None:
+        try:
+            return host.fqz_compress(data, fq.lens, fq.flags, fq.seq_buf,
+                                     strat_n)
+        except ValueError:
+            # codec declined (e.g. >96-symbol quality alphabet, where
+            # the reference corrupts its heap); the reference treats a
+            # NULL codec return as out_len=UINT_MAX — method skipped
+            return None
+    from fqzcomp5_tpu_torch.ops import fqz_device_encode
+
+    out = fqz_device_encode.fqz_compress_device(
+        data, fq.lens, fq.flags, fq.seq_buf, strat_n, device)
+    if out is not None and arg.verify_device and not _decodes_back(
+            lambda: host.fqz_decompress(out, len(data), seq_buf=fq.seq_buf),
+            data):
+        raise ValueError("device FQZ payload failed native decode-back")
+    return out
+
+
 def _compress_one(m: int, arg: Options, fq: FastqBatch, sec: int,
-                  data: bytes):
-    """Run one codec method; returns (payload, strat) or None on N/A."""
+                  data: bytes, device: torch.device | Mesh | None = None):
+    """Run one codec method; returns (payload, strat) or None on N/A.
+    device: where the adaptive codecs encode (None: the host codecs)."""
     m = Method(m)
     if m in _RANS_ORDERS:
         return host.rans_compress(data, _RANS_ORDERS[m]), 0
@@ -67,37 +131,23 @@ def _compress_one(m: int, arg: Options, fq: FastqBatch, sec: int,
     if m in (Method.TOK3_3_LZP, Method.TOK3_5_LZP, Method.TOK3_7_LZP,
              Method.TOK3_9_LZP):
         return names_mod.encode_names(data, 2, _TOK3_LEVEL[m]), -1
-    if m in _SEQ_PARAMS:
-        slevel, both = _SEQ_PARAMS[m]
-        strat = (slevel << 4) | (both << 3) | 1
-        try:
-            return host.seq_encode(data, fq.lens, both, slevel), strat
-        except ValueError:
-            return None  # coder overflowed its cap on adversarial input
-    if m == Method.SEQ_CUSTOM:
-        strat = (arg.slevel << 4) | (arg.both_strands << 3) | 1
-        try:
-            return host.seq_encode(data, fq.lens, arg.both_strands,
-                                   arg.slevel), strat
-        except ValueError:
-            return None
+    if m in _SEQ_PARAMS or m == Method.SEQ_CUSTOM:
+        slevel, both = _SEQ_PARAMS.get(m, (arg.slevel, arg.both_strands))
+        out = _seq_encode(data, fq.lens, both, slevel, arg, device)
+        return None if out is None else (
+            out, (slevel << 4) | (both << 3) | 1)
     if m in (Method.FQZ0, Method.FQZ1, Method.FQZ2, Method.FQZ3,
              Method.FQZ4):
-        strat_n = int(m) - int(Method.FQZ0)
-        try:
-            return host.fqz_compress(data, fq.lens, fq.flags,
-                                     fq.seq_buf, strat_n), 1
-        except ValueError:
-            # codec declined (e.g. >96-symbol quality alphabet, where
-            # the reference corrupts its heap); the reference treats a
-            # NULL codec return as out_len=UINT_MAX — method skipped
-            return None
+        out = _fqz_compress(data, fq, int(m) - int(Method.FQZ0), arg,
+                            device)
+        return None if out is None else (out, 1)
     raise ValueError(f"unsupported method {m}")
 
 
 def compress_with_methods(learner: MethodLearner, arg: Options,
                           fq: FastqBatch, methods: int, sec: int,
-                          data: bytes):
+                          data: bytes,
+                          device: torch.device | Mesh | None = None):
     """Try each allowed method, keep the smallest (fqzcomp5.c:1961-2144).
 
     Returns (payload, strat, method_used)."""
@@ -109,7 +159,7 @@ def compress_with_methods(learner: MethodLearner, arg: Options,
     for m in range(1, 31):
         if not (methods & (1 << m)):
             continue
-        r = _compress_one(m, arg, fq, sec, data)
+        r = _compress_one(m, arg, fq, sec, data, device)
         if r is None:
             sizes[m] = (len(data), (1 << 32) - 1)  # mirrors out_len=UINT_MAX
             continue
@@ -133,7 +183,10 @@ def compress_with_methods(learner: MethodLearner, arg: Options,
 
 
 def encode_block(learner: MethodLearner, arg: Options, fq: FastqBatch,
-                 timings=None) -> bytes:
+                 timings=None,
+                 device: torch.device | Mesh | None = None) -> bytes:
+    """One block's bytes.  device: where the adaptive codecs encode (a
+    torch.device or a Mesh; None: the host codecs)."""
     import time
 
     out = bytearray()
@@ -169,7 +222,7 @@ def encode_block(learner: MethodLearner, arg: Options, fq: FastqBatch,
     tv = time.monotonic()
     methods = learner.methods_for(Section.SEQ)
     spay, sstrat, smeth = compress_with_methods(
-        learner, arg, fq, methods, Section.SEQ, fq.seq_buf)
+        learner, arg, fq, methods, Section.SEQ, fq.seq_buf, device)
     out += struct.pack("<BII", sstrat, len(fq.seq_buf), len(spay)) + spay
     if timings is not None:
         timings.update(1, len(fq.seq_buf), len(spay) + 9,
@@ -181,7 +234,7 @@ def encode_block(learner: MethodLearner, arg: Options, fq: FastqBatch,
         tv = time.monotonic()
         methods = learner.methods_for(Section.QUAL)
         qpay, qstrat, qmeth = compress_with_methods(
-            learner, arg, fq, methods, Section.QUAL, fq.qual_buf)
+            learner, arg, fq, methods, Section.QUAL, fq.qual_buf, device)
         out += struct.pack("<BII", qstrat, len(fq.qual_buf), len(qpay)) + qpay
         if timings is not None:
             timings.update(2, len(fq.qual_buf), len(qpay) + 9,

@@ -8,14 +8,21 @@ engines:
   ``torch.device("cuda")``.  With no visible CUDA device the command
   fails with ``ERROR:`` and exit code 1 before any output file is opened.
 - ``-e host``: the native host engine on the CPU (``drivers``), the one
-  way to ask for the CPU.
+  way to ask for the CPU.  With ``FQZ5_DEVICE_ADAPTIVE`` set (not "" or
+  "0"), its encode sends each block's adaptive sections (SEQ*, FQZ*) to
+  ``torch.device("cuda")`` (``blocks.encode_block``), failing like ``-e
+  cuda`` without a card; ``FQZ5_DEVICE_ADAPTIVE_VERIFY`` also decodes
+  each of their payloads back on the host.  Under ``-e cuda`` the switch
+  changes nothing: the wave engine encodes those sections on the card.
 
 ``--check`` and ``--inspect`` only walk the container, so they run on
 the host whatever ``-e`` says.  ``FQZ5_DEC_V3`` set to any non-empty
 value makes the cuda engine decode rANS sections through the
 boundary-table kernels (``tables="boundary"``) instead of the s3-LUT
-ones; it is read here and nowhere below.  ``-e tpu`` and the daemon
-verbs (``--daemon``, ``--daemon-stop``) are refused with ``ERROR:``.
+ones.  These switches are read here and nowhere below.  ``--daemon
+[SOCK]`` serves this command from a pre-warmed process, ``--daemon-stop
+[SOCK]`` stops it, ``--daemon-quiet`` silences the server (``daemon``);
+``-e tpu`` is refused with ``ERROR:``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ USAGE = """Usage: python -m fqzcomp5_tpu_torch.cli [options] [input.fastq [outpu
    or: ... [options] -d [input.fqz5  [output_R1.fastq output_R2.fastq]]
    or: ... --check      [input.fqz5]
    or: ... --inspect    [input.fqz5]
+   or: ... --daemon [--daemon-quiet] [SOCKET] | --daemon-stop [SOCKET]
 
 Options:
     -d            Decompress
@@ -50,7 +58,10 @@ Options:
     -e ENGINE     Compute engine: cuda (the default; "auto" resolves to
                   it): the wave engine on the CUDA device, or host: the
                   native C++ engine on the CPU.  FQZ5_DEC_V3=1 makes
-                  cuda decode through the boundary-table kernels
+                  cuda decode through the boundary-table kernels.
+                  FQZ5_DEVICE_ADAPTIVE=1 makes host encode the adaptive
+                  SEQ/FQZ sections on the CUDA device (byte-identical
+                  output)
 
     -n INT        Name encoding method (0=rANS, 1=tok3, 2=tok3+LZP)
     -N INT        Name encoding strategy.
@@ -198,10 +209,21 @@ def main(argv=None) -> int:
     """CLI entry; decode/encode failures print ERROR: and exit 1
     (reference behavior, fqzcomp5.c decode drivers)."""
     argv = sys.argv[1:] if argv is None else list(argv)
+    # the daemon verbs take no codec flags: handled before parsing
     if "--daemon" in argv or "--daemon-stop" in argv:
-        print("ERROR: the daemon (--daemon, --daemon-stop) is the JAX "
-              "package's; the port has none", file=sys.stderr)
-        return 1
+        from fqzcomp5_tpu_torch import daemon
+
+        rest = [a for a in argv
+                if a not in ("--daemon", "--daemon-stop", "--daemon-quiet")]
+        sock = rest[0] if rest else None
+        if "--daemon-stop" in argv:
+            if daemon.stop(sock):
+                return 0
+            print("fqz5 daemon: no daemon to stop", file=sys.stderr)
+            return 1
+        idle = os.environ.get("FQZ5_DAEMON_IDLE")
+        return daemon.serve(sock, quiet="--daemon-quiet" in argv,
+                            idle_timeout=float(idle) if idle else None)
     try:
         probe, decomp, _ = parse_args(argv)
         reading_archive = bool(decomp or probe.check_only
@@ -223,22 +245,37 @@ def main(argv=None) -> int:
         return 1
 
 
-def _engine(arg: Options, t):
+def switch_on(name: str) -> bool:
+    """Whether the environment sets the switch name (not "" or "0")."""
+    return os.environ.get(name, "0") not in ("", "0")
+
+
+def _cuda_device(what: str):
+    import torch
+
+    if not torch.cuda.is_available():
+        raise ValueError(f"{what} needs a CUDA device, and none is visible")
+    return torch.device("cuda")
+
+
+def _engine(arg: Options, t, decomp: bool):
     """(encode, encode_paired, decode) of the engine arg names, each
-    bound to arg and the timings t."""
+    bound to arg and the timings t.  A card the run needs and does not
+    see raises ValueError here, before any output file is opened."""
     if arg.engine == "host":
         from fqzcomp5_tpu_torch import drivers
 
-        return (lambda i, o: drivers.encode_file(i, o, arg, t),
-                lambda i1, i2, o: drivers.encode_paired(i1, i2, o, arg, t),
+        dev = None
+        if switch_on("FQZ5_DEVICE_ADAPTIVE") and not decomp:
+            dev = _cuda_device("-e host with FQZ5_DEVICE_ADAPTIVE")
+            arg.verify_device = int(switch_on("FQZ5_DEVICE_ADAPTIVE_VERIFY"))
+        return (lambda i, o: drivers.encode_file(i, o, arg, t, dev),
+                lambda i1, i2, o: drivers.encode_paired(i1, i2, o, arg, t,
+                                                        dev),
                 lambda i, w: drivers.decode_file(i, w, arg, t))
-    import torch
-
     from fqzcomp5_tpu_torch import cuda_driver
 
-    if not torch.cuda.is_available():
-        raise ValueError("-e cuda needs a CUDA device, and none is visible")
-    dev = torch.device("cuda")
+    dev = _cuda_device("-e cuda")
     tables = "boundary" if os.environ.get("FQZ5_DEC_V3") else "lut"
     return (lambda i, o: cuda_driver.encode_file(i, o, arg, t, dev),
             lambda i1, i2, o: cuda_driver.encode_paired(i1, i2, o, arg, t,
@@ -272,7 +309,7 @@ def _main(argv) -> int:
     t = Timings()
     # the engine is settled (and a missing card reported) before any
     # output file is opened
-    encode, encode_paired, decode = _engine(arg, t)
+    encode, encode_paired, decode = _engine(arg, t, decomp)
     is_gz = lambda p: p is not None and p.endswith(".gz")  # noqa: E731
 
     if decomp:

@@ -6,7 +6,9 @@ and the (de)interleaved/gzip variants).  The reference's thread pool
 with serial-ordered results (thread_pool.c) is replaced by a
 ThreadPoolExecutor whose futures are drained in submission order —
 block payloads are independent, so output is byte-identical regardless
-of worker count.
+of worker count.  Given a device, the encoders send each block's
+adaptive sections there (blocks.encode_block), one job at a time from
+each worker thread.
 """
 
 from __future__ import annotations
@@ -118,8 +120,11 @@ def _make_learner(arg: Options) -> MethodLearner:
     return learner
 
 
-def _encode_stream(batches, out_fp: BinaryIO, arg: Options,
-                   t: Timings) -> None:
+def _encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
+                   device=None) -> None:
+    """Encode the blocks of `batches` on a pool of arg.nthread threads;
+    device (a torch.device or a Mesh; None: the host codecs) is where
+    each block's adaptive sections encode (blocks.encode_block)."""
     container.write_header(out_fp)
     learner = _make_learner(arg)
     idx = container.FileIndex()
@@ -128,7 +133,7 @@ def _encode_stream(batches, out_fp: BinaryIO, arg: Options,
 
     def job(fq):
         bt = Timings()
-        blk = encode_block(learner, arg, fq, bt)
+        blk = encode_block(learner, arg, fq, bt, device)
         return blk, fq, bt
 
     if nthread == 1 and (os.cpu_count() or 1) == 1:
@@ -207,7 +212,7 @@ def _prefetched(gen, depth: int = 2):
 
 
 def encode_file(in_path: Optional[str], out_fp: BinaryIO, arg: Options,
-                t: Timings) -> None:
+                t: Timings, device=None) -> None:
     parser = fastq.Parser(fastq.open_input(in_path))
 
     def batches():
@@ -217,11 +222,11 @@ def encode_file(in_path: Optional[str], out_fp: BinaryIO, arg: Options,
                 return
             yield b
 
-    _encode_stream(_prefetched(batches()), out_fp, arg, t)
+    _encode_stream(_prefetched(batches()), out_fp, arg, t, device)
 
 
 def encode_paired(in1: str, in2: str, out_fp: BinaryIO, arg: Options,
-                  t: Timings) -> None:
+                  t: Timings, device=None) -> None:
     parser = fastq.InterleavedParser(
         fastq.open_input(in1), fastq.open_input(in2))
 
@@ -232,7 +237,7 @@ def encode_paired(in1: str, in2: str, out_fp: BinaryIO, arg: Options,
                 return
             yield b
 
-    _encode_stream(_prefetched(batches()), out_fp, arg, t)
+    _encode_stream(_prefetched(batches()), out_fp, arg, t, device)
 
 
 def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings) -> None:

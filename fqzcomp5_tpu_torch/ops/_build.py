@@ -130,6 +130,17 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches``: the host driver's
+    worker threads launch kernels at once, and ``+=`` on an attribute
+    is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(rc: int, what: str) -> None:
     """Raise for a non-zero cudaGetLastError() code from a launch."""
     if rc != 0:

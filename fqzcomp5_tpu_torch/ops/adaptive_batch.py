@@ -53,10 +53,15 @@ F_T4, F_T2, F_N128, F_W256 = 0, 1, 2, 3
 def _prep_job(job, device: torch.device):
     """Expand one job into (header, fam, mid, sym, enc_mask, meta) host
     arrays, or None for a job the fqz codec declines.  'fqz' jobs carry
-    a native wire header."""
-    if job[0] == "fqz":
-        _, qual, lens, flags, seq_buf, strat = job
-        hdr, P, sels = prepare_fqz(qual, lens, flags, seq_buf, strat)
+    a native wire header; 'fqz_params' jobs, whose parameters and
+    selectors were picked already, carry none."""
+    if job[0] in ("fqz", "fqz_params"):
+        if job[0] == "fqz":
+            _, qual, lens, flags, seq_buf, strat = job
+            hdr, P, sels = prepare_fqz(qual, lens, flags, seq_buf, strat)
+        else:
+            _, qual, lens, sels, P, seq_buf = job
+            hdr = b""
         if int(P.max_sym) >= 96:
             # the native codec's decline (Models::init,
             # native/fqzqual.cpp): >96-symbol alphabets are outside the
@@ -230,9 +235,10 @@ def encode_adaptive_batch(jobs, device: torch.device | Mesh
     `device`.  Under a Mesh, pass 1 and the triples stay on its first
     device, and passes 2 and 3 split their rows and streams over it.
 
-    jobs: ('fqz', qual, lens, flags, seq_buf, strat) or ('seq', seq_buf,
-    lens, both, slevel) tuples.  Returns each job's complete section
-    payload (fqz payloads include the native wire header),
+    jobs: ('fqz', qual, lens, flags, seq_buf, strat), ('fqz_params',
+    qual, lens, sels, P, seq_buf) or ('seq', seq_buf, lens, both,
+    slevel) tuples.  Returns each job's complete section payload ('fqz'
+    payloads include the native wire header),
     byte-identical to the host codecs, or None for a job the fqz codec
     declines.  Jobs whose summed input exceeds BATCH_BUDGET run as
     several independent batches."""

@@ -8,7 +8,9 @@ every quality byte's model context on the device
 per-record overhead symbols (selector, four length bytes, duplicate
 flag; native/fqzqual.cpp:698-756) with the quality symbols into one
 (model id, symbol) stream in the native encoder's order.  Passes 2 and
-3 run in ``adaptive_batch``.
+3 run in ``adaptive_batch``; ``fqz_compress_device`` and
+``encode_payload`` encode one section through it (the host driver's
+per-block route).
 """
 
 from __future__ import annotations
@@ -195,3 +197,29 @@ def prepare_fqz(qual: bytes, lens, flags, seq_buf: bytes | None,
         raise ValueError("fqz_prepare failed")
     P = fqz_ctx_torch.FqzParams.parse(par[:rc])
     return hdr[:int(hlen[0])].tobytes(), P, sels[:nrec]
+
+
+def encode_payload(qual: bytes, lens, sels, P: fqz_ctx_torch.FqzParams,
+                   device, seq: bytes | None = None) -> bytes | None:
+    """The range-coder payload of one fqz section (everything after the
+    native wire header) for the parameters P and selectors sels that
+    prepare_fqz picked, encoded on `device` (a torch.device or a Mesh);
+    None where the codec declines P (a quality alphabet of 96 symbols or
+    more).  One job through adaptive_batch."""
+    from fqzcomp5_tpu_torch.ops.adaptive_batch import encode_adaptive_batch
+
+    return encode_adaptive_batch(
+        [("fqz_params", qual, lens, sels, P, seq)], device)[0]
+
+
+def fqz_compress_device(qual: bytes, lens, flags, seq_buf: bytes | None,
+                        strat: int, device) -> bytes | None:
+    """codecs.host.fqz_compress with the range-coder payload encoded on
+    `device` (a torch.device or a Mesh): the native wire header and the
+    payload, byte-identical; None where the codec declines the block
+    (a quality alphabet of 96 symbols or more).  One job through
+    adaptive_batch."""
+    from fqzcomp5_tpu_torch.ops.adaptive_batch import encode_adaptive_batch
+
+    return encode_adaptive_batch(
+        [("fqz", qual, lens, flags, seq_buf, strat)], device)[0]

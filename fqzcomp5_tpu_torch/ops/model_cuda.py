@@ -40,7 +40,7 @@ def _evolve(symplane, counts, max_sym, step_inc: int, cap: int, wrapper):
                            max_sym.data_ptr(), C, T, cap, step_inc,
                            cf.data_ptr(), tot.data_ptr(), stream)
     _build.check(rc, f"evolve_{cap}")
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return cf, tot
 
 
@@ -75,7 +75,7 @@ def tiny_evolve(symplane: torch.Tensor, counts: torch.Tensor, nsym: int):
         rc = L.fqz5_tiny_evolve(symplane.data_ptr(), counts.data_ptr(), C, T,
                                 nsym, cf.data_ptr(), tot.data_ptr(), stream)
     _build.check(rc, "tiny_evolve")
-    tiny_evolve.launches += 1
+    _build.count_launch(tiny_evolve)
     return cf, tot
 
 

@@ -62,7 +62,7 @@ def encode_walk(idx: torch.Tensor, tab: torch.Tensor, shift: int,
             B, T, shift, Rf.data_ptr(), words.data_ptr(),
             nwords.data_ptr(), stream)
     _build.check(rc, "encode_walk")
-    encode_walk.launches += 1
+    _build.count_launch(encode_walk)
     return Rf, words, nwords
 
 

@@ -61,7 +61,7 @@ def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
             f0.data_ptr(), t_real.data_ptr(), B, T, S, int(packed), shift,
             syms.data_ptr(), Rf.data_ptr(), ptrf.data_ptr(), stream)
     _build.check(rc, "decode_bnd_o0")
-    decode_bnd_o0.launches += 1
+    _build.count_launch(decode_bnd_o0)
     return syms, Rf, ptrf
 
 
@@ -100,7 +100,7 @@ def decode_dense_o1(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
             Rf.data_ptr(), ptrf.data_ptr(),
             None if scratch is None else scratch.data_ptr(), stride, stream)
     _build.check(rc, "decode_dense_o1")
-    decode_dense_o1.launches += 1
+    _build.count_launch(decode_dense_o1)
     return syms, Rf, ptrf
 
 

@@ -49,7 +49,7 @@ def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
             t_real.data_ptr(), B, T, syms.data_ptr(), Rf.data_ptr(),
             stream)
     _build.check(rc, "decode_o0")
-    decode_o0.launches += 1
+    _build.count_launch(decode_o0)
     return syms, Rf
 
 
@@ -81,7 +81,7 @@ def decode_o1(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
             t_real.data_ptr(), B, T, syms.data_ptr(), Rf.data_ptr(),
             ptrf.data_ptr(), scratch.data_ptr(), stride, stream)
     _build.check(rc, "decode_o1")
-    decode_o1.launches += 1
+    _build.count_launch(decode_o1)
     return syms, Rf, ptrf
 
 

@@ -46,7 +46,7 @@ def encode_walk(cf: torch.Tensor, tot: torch.Tensor, off: torch.Tensor,
             state.data_ptr(), B, cap, out.data_ptr(), totals.data_ptr(),
             st_out.data_ptr(), stream)
     _build.check(rc, "rc encode_walk")
-    encode_walk.launches += 1
+    _build.count_launch(encode_walk)
     return out, totals, st_out
 
 

@@ -15,7 +15,8 @@ fqzcomp5.c:1073-1270) in the three-pass form:
 ``seq_contexts`` walks the read positions with all records of the block
 as one batch of torch ops on the device; ``build_events`` merges run,
 transition and base events into one stream in native encode order on
-the host.  Passes 2 and 3 run in ``adaptive_batch``.
+the host.  Passes 2 and 3 run in ``adaptive_batch``; ``encode_payload``
+encodes one section through it (the host driver's per-block route).
 """
 
 from __future__ import annotations
@@ -148,3 +149,16 @@ def build_events(seq_buf: bytes, lens, both_strands: int, ctx_size: int,
             state = ncls
     return (np.concatenate(fam_l), np.concatenate(mid_l),
             np.concatenate(sym_l), np.concatenate(upd_l))
+
+
+def encode_payload(seq_buf: bytes, lens, both_strands: int, ctx_size: int,
+                   device) -> bytes:
+    """The range-coder payload of one SEQ section, encoded on `device` (a
+    torch.device or a Mesh): byte-identical to the native codec's
+    (codecs.host.seq_encode), with no cap on its size.  One job through
+    adaptive_batch, so the host driver's per-block route and the wave
+    engine share one implementation."""
+    from fqzcomp5_tpu_torch.ops.adaptive_batch import encode_adaptive_batch
+
+    return encode_adaptive_batch(
+        [("seq", seq_buf, lens, both_strands, ctx_size)], device)[0]

@@ -41,6 +41,9 @@ class Options:
     paired_mode: int = 0
     # TPU-framework extensions (not part of the reference CLI)
     engine: str = "cuda"  # cuda | host
+    # decode each device-encoded adaptive payload back through the
+    # native decoder (FQZ5_DEVICE_ADAPTIVE_VERIFY; blocks.py)
+    verify_device: int = 0
 
     def apply_preset(self, level: int) -> None:
         """Apply a -1/-3/-5/-7/-9 preset (fqzcomp5.c:4886-4932)."""

@@ -33,8 +33,11 @@ byte-identical to one process's for any process count.
         [-b SIZE] [-e cuda|host] [--device DEV] in out [out2]
 
 writes `out` from process 0.  ``-e cuda`` (the default) runs each rank
-on ``cuda:{P % cards}``; ``FQZ5_DIST_LOCAL_MESH=DPxSP`` gives it a mesh
-of dp*sp slots from that card on, wrapping round the visible cards.
+on ``cuda:{P % cards}``, and so does ``-e host`` with
+``FQZ5_DEVICE_ADAPTIVE`` set, for its blocks' adaptive sections (as the
+CLI's ``-e host`` does, ``FQZ5_DEVICE_ADAPTIVE_VERIFY`` included);
+``FQZ5_DIST_LOCAL_MESH=DPxSP`` gives a rank a mesh of dp*sp slots from
+that card on, wrapping round the visible cards.
 ``--device cpu`` runs the plain versions on the CPU instead (its local
 mesh is dp*sp CPU slots); ``--device cuda:K`` starts at card K.
 ``FQZ5_DIST_STATS=1`` prints one JSON line of ``STATS`` at exit.
@@ -53,6 +56,7 @@ import torch
 
 from fqzcomp5_tpu_torch import container, fastq
 from fqzcomp5_tpu_torch.blocks import encode_block
+from fqzcomp5_tpu_torch.cli import TPU_ENGINE_REFUSED, switch_on
 from fqzcomp5_tpu_torch.constants import Section
 from fqzcomp5_tpu_torch.learning import (MethodLearner, journal_dumps,
                                          journal_loads)
@@ -187,7 +191,9 @@ def encode_file_distributed(in_path: str, out_fp: BinaryIO | None,
     """Distributed encode; only process 0 writes to out_fp (pass None
     elsewhere).  engine "host" runs the host codecs a block at a time,
     "cuda" the wave engine on `device` (a torch.device or a Mesh; the
-    CPU runs the plain versions).  The archive equals one process's."""
+    CPU runs the plain versions).  Under "host", a device given is where
+    each block's adaptive sections encode (blocks.encode_block).  The
+    archive equals one process's."""
     if engine not in ("host", "cuda"):
         raise ValueError(f"unknown engine {engine!r}")
     blocks = fastq.scan_blocks(in_path, arg.blk_size)
@@ -205,7 +211,7 @@ def encode_file_distributed(in_path: str, out_fp: BinaryIO | None,
         return
     if blocks is None:
         _encode_replicated(in_path, out_fp, arg, process_id=process_id,
-                           num_processes=num_processes)
+                           num_processes=num_processes, device=device)
         return
 
     learner = MethodLearner()
@@ -226,7 +232,8 @@ def encode_file_distributed(in_path: str, out_fp: BinaryIO | None,
                 STATS["blocks_encoded"] += 1
                 if trial:
                     learner.start_journal()
-                round_pay[owner] = encode_block(learner, arg, fq)
+                round_pay[owner] = encode_block(learner, arg, fq,
+                                                device=device)
                 if trial:
                     blob = journal_dumps(learner.pop_journal())
         elif not trial:
@@ -246,7 +253,7 @@ def encode_file_distributed(in_path: str, out_fp: BinaryIO | None,
 
 def _encode_replicated(in_path: str, out_fp: BinaryIO | None,
                        arg: Options, *, process_id: int,
-                       num_processes: int) -> None:
+                       num_processes: int, device=None) -> None:
     """For inputs the scanner cannot pre-split (gzip, FASTA, multi-line
     records): every process parses the whole stream, so block
     boundaries and serials agree everywhere; trial blocks are encoded
@@ -271,7 +278,7 @@ def _encode_replicated(in_path: str, out_fp: BinaryIO | None,
                         for s in _SECS)
         if redundant or owner == process_id:
             with _work_timer():
-                pay = encode_block(learner, arg, fq)
+                pay = encode_block(learner, arg, fq, device=device)
             STATS["blocks_encoded"] += 1
             # a redundant block's bytes are the same everywhere: the
             # writer keeps its own copy
@@ -370,8 +377,6 @@ def decode_file_distributed(in_path: str, out_fp: BinaryIO | None,
 
 def _parse_argv(argv):
     """(arg, decode, engine, device, files) of the entry's arguments."""
-    from fqzcomp5_tpu_torch.cli import TPU_ENGINE_REFUSED
-
     arg = Options()
     files = []
     decode = False
@@ -407,12 +412,13 @@ def _parse_argv(argv):
     return arg, decode, engine, device, files
 
 
-def _rank_device(device: str | None, pid: int, mesh_env: str | None):
-    """The device (or local Mesh) of rank pid under -e cuda: --device
-    cpu gives the CPU (a mesh of CPU slots); otherwise card K of
-    --device cuda:K, or card pid % cards, and a mesh's slots go on from
-    it round the visible cards.  Raises ValueError when no card is
-    visible."""
+def _rank_device(device: str | None, pid: int, mesh_env: str | None,
+                 what: str = "-e cuda"):
+    """The device (or local Mesh) of rank pid under -e cuda, or -e host
+    with FQZ5_DEVICE_ADAPTIVE (`what`): --device cpu gives the CPU (a
+    mesh of CPU slots); otherwise card K of --device cuda:K, or card
+    pid % cards, and a mesh's slots go on from it round the visible
+    cards.  Raises ValueError when no card is visible."""
     from fqzcomp5_tpu_torch.parallel.pipeline import make_mesh
 
     base = torch.device(device) if device else torch.device("cuda")
@@ -421,7 +427,7 @@ def _rank_device(device: str | None, pid: int, mesh_env: str | None):
     n = 1
     if base.type == "cuda":
         if not torch.cuda.is_available():
-            raise ValueError("-e cuda needs a CUDA device, and none is "
+            raise ValueError(f"{what} needs a CUDA device, and none is "
                              "visible (--device cpu runs the plain versions)")
         ncards = torch.cuda.device_count()
         first = base.index if base.index is not None else pid % ncards
@@ -438,7 +444,7 @@ def _rank_device(device: str | None, pid: int, mesh_env: str | None):
 def main(argv=None) -> int:
     """Entry of one rank: FQZ5_DIST_COORD / _NPROCS / _PID and the
     arguments above; out is written by process 0 only.  A usage error,
-    -e tpu and an -e cuda encode without a card end every rank with
+    -e tpu and an encode without the card it needs end every rank with
     ERROR: and exit 1 before the group is joined, so no rank waits on
     another.  -d decodes on the host, as the JAX package's does."""
     t_start = time.perf_counter()
@@ -447,9 +453,14 @@ def main(argv=None) -> int:
     nprocs = int(os.environ["FQZ5_DIST_NPROCS"])
     try:
         arg, decode, engine, device, files = _parse_argv(argv)
-        dev = (_rank_device(device, pid,
-                           os.environ.get("FQZ5_DIST_LOCAL_MESH"))
-               if engine == "cuda" and not decode else None)
+        arg.verify_device = int(switch_on("FQZ5_DEVICE_ADAPTIVE_VERIFY"))
+        dev = None
+        if not decode and (engine == "cuda"
+                           or switch_on("FQZ5_DEVICE_ADAPTIVE")):
+            dev = _rank_device(
+                device, pid, os.environ.get("FQZ5_DIST_LOCAL_MESH"),
+                "-e cuda" if engine == "cuda"
+                else "-e host with FQZ5_DEVICE_ADAPTIVE")
     except ValueError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1

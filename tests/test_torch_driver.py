@@ -119,17 +119,15 @@ def test_cli_strips_cuda_engine():
 
 def test_cli_without_cuda_is_the_host_cli(tmp_path, data_dir, capsys):
     """Only -e host runs on the CPU: with no card, the default engine
-    fails with ERROR: and writes nothing, and -e tpu and the daemon
-    verbs are refused."""
+    fails with ERROR: and writes nothing, and -e tpu is refused."""
     src = data_dir / "sample.fastq"
     comp = tmp_path / "c.fqz5"
     out = tmp_path / "o.fastq"
     assert cli.main(["-1", "-V", str(src), str(comp)]) == 1
     assert not comp.exists()
     assert "needs a CUDA device" in capsys.readouterr().err
-    for argv in (["-e", "tpu", "-1", str(src), str(comp)], ["--daemon"]):
-        assert cli.main(argv) == 1
-        assert capsys.readouterr().err.startswith("ERROR:")
+    assert cli.main(["-e", "tpu", "-1", str(src), str(comp)]) == 1
+    assert capsys.readouterr().err.startswith("ERROR:")
     assert cli.main(["-e", "host", "-1", "-V", str(src), str(comp)]) == 0
     assert cli.main(["-e", "host", "-d", "-V", str(comp), str(out)]) == 0
     assert out.read_bytes() == src.read_bytes()

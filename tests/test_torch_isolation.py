@@ -125,6 +125,8 @@ def test_port_sources_never_import_the_jax_package():
     for name in ("pipeline", "distributed", "dist_cuda"):
         assert os.path.join(ROOT, "fqzcomp5_tpu_torch", "parallel",
                             name + ".py") in files
+    for name in ("daemon", "launcher"):
+        assert os.path.join(ROOT, "fqzcomp5_tpu_torch", name + ".py") in files
     bad = {f: _imports(f) & {"fqzcomp5_tpu", "jax"} for f in files}
     assert not {f: b for f, b in bad.items() if b}
 
@@ -172,3 +174,29 @@ def test_kernel_layer_never_imports_the_scale_out_layer():
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
     assert _modules(os.path.join(pkg, "mesh.py")) <= {"__future__", "torch"}
+
+
+_PRELOAD = textwrap.dedent("""
+    import sys
+    import torch
+    from fqzcomp5_tpu_torch import daemon
+    daemon._preload()
+    for pkg in ("jax", "fqzcomp5_tpu"):
+        loaded = [m for m in sys.modules
+                  if m == pkg or m.startswith(pkg + ".")]
+        print("MODULES", pkg, loaded)
+    print("CUDA_INITIALIZED", torch.cuda.is_initialized())
+    print("CLI", "fqzcomp5_tpu_torch.cuda_driver" in sys.modules)
+""")
+
+
+def test_daemon_preload_imports_no_jax_and_leaves_cuda_alone():
+    """The daemon's server preloads the port without the JAX package and
+    without initialising CUDA, which a forked child could not use."""
+    r = subprocess.run([sys.executable, "-c", _PRELOAD], capture_output=True,
+                       text=True, env=_env(), cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "MODULES jax []" in r.stdout
+    assert "MODULES fqzcomp5_tpu []" in r.stdout
+    assert "CUDA_INITIALIZED False" in r.stdout
+    assert "CLI True" in r.stdout
