@@ -50,15 +50,18 @@ Phases, each printed with its time; any failure exits non-zero:
      streams x 4,096 steps in two chunks with the state carried, and 2
      streams whose first holds an 0xFF run of thousands of bytes (longer
      than the kernel's shared-memory ring of flush records) deferred
-     across the chunk boundary.  Then times the walks of --walk-times alone at main-path
-     shapes.
+     across the chunk boundary.  Then the decode walks of --walk-times at
+     the main path's launch shapes: decode_o1 and decode_dense_o1,
+     decode_o0 and decode_bnd_o0, each round-tripped and timed.  (The
+     other walks of --walk-times, model evolution, range coder and encode
+     walk, assert nothing and run only there.)
   4. adaptive -- encodes the seq and qual of the first 10 MB block of a
      FASTQ corpus (made with seeded numpy before phase 3: 150 bp reads,
      random-walk qualities) under SEQ10, SEQ12B, FQZ1 and FQZ3 as one
      batch on the card; the payloads must equal the native host codecs'.
   5. e2e     -- drives the port's CLI (fqzcomp5_tpu_torch.cli, whose
-     default engine is the card) at -1, -3 and -5 on the whole corpus,
-     each path with every
+     default engine is the card) at -1 and -3 on the whole corpus and
+     at -5 on its first 128 MB (E2E_ADAPTIVE_MB), each path with every
      launch count set to 0 just before it and read just after: encode,
      decode, cmp; decodes the same archives with the host engine
      (-e host).  At -1 and -3 the archive is decoded once more with
@@ -75,24 +78,39 @@ Phases, each printed with its time; any failure exits non-zero:
      versions; in subprocesses started before phase 3, which run beside
      the card's phases), requiring equal archives.
   6. host-adaptive -- the host engine's per-block device route: the CLI's
-     -e host -5 with FQZ5_DEVICE_ADAPTIVE=1 on the corpus's first 100 MB
-     (one block: four one-job batches of about 48 MB) and on a 16 MB
+     -e host -5 with FQZ5_DEVICE_ADAPTIVE=1 on the corpus's first 50 MB
+     (one block: four one-job batches of about 24 MB) and on a 16 MB
      prefix at -b 1000000 (16 blocks, trial and locked, the driver's 4
      threads calling the route at once).  Each archive must equal the
      native -e host encode of its prefix (in subprocesses started before
      phase 3); evolve_128, evolve_256, tiny_evolve and rc_encode_walk
-     must launch and encode_walk must not; the 100 MB archive is decoded
+     must launch and encode_walk must not; the 50 MB archive is decoded
      with -e host and must equal its prefix.  Logs each run's wall, MB/s
      and peak device memory beside the native run's wall.
   7. daemon  -- the port's daemon, served by a subprocess of this script
      (--daemon-serve) whose server must have loaded the kernel library
      and left CUDA uninitialised: the corpus at -1 through it (cmp with
-     the e2e archive), its -d (cmp with the source) and again with
-     FQZ5_DEC_V3=1 forwarded; a -1 encode of a 4 MB prefix and a decode
-     at once, each equal to its direct run; five -1 encodes of the
-     prefix through the daemon and five as fresh processes, each wall
-     logged.  Every forked child records its launch counts, which must
-     show its path's kernels, and its first CUDA call's time.
+     the e2e archive), its -d (cmp with the source), both again through
+     the C client (bin/fqz5-torch, built at its first use into
+     build/fqz5_torch_client/; the decode must launch decode_o0 and
+     decode_o1), and -d with FQZ5_DEC_V3=1 forwarded; a -1 encode of a
+     4 MB prefix and a decode at once, each equal to its direct run;
+     five -1 encodes of the prefix each through the C client,
+     daemon.request and as fresh processes, and five requests that fail
+     at once (no CUDA context) through the C client and through the
+     Python launcher, each wall logged.  Then a -5 encode of the corpus through
+     the C client, whose client is killed once the job's CUDA context
+     shows in nvidia-smi: within 15 s the job must be gone from /proc
+     and its context from nvidia-smi, and its output must stop growing;
+     the server must then answer ping and encode the prefix again
+     through the C client (cmp).  Every forked child records its launch
+     counts, which must show its path's kernels, and its first CUDA
+     call's time.
+  7b. devtime -- FQZ5_DEVTIME=1 in-process: the corpus at -1 (encode,
+     decode) and a 1 MB prefix at -5, each archive cmp-equal to its run
+     without the switch; logs link_s, link_bytes, compute_s,
+     compute_calls and the wall, with compute_calls > 0 and, on the
+     corpus, link_bytes at least its seq+qual bytes.
   8. scale   -- the scale-out paths (fqzcomp5_tpu_torch.parallel) on a
      mesh of every visible card, or of cuda:0 twice (1 x 2, its ranges one
      after another) when one is visible: the corpus at -1 over the mesh
@@ -137,7 +155,8 @@ the most time and the order-1 decode and model-evolution launch shapes.
     python3 chip_smoke.py --only PHASE[,PHASE...]    (--scale: --only scale)
 
 builds the kernels, makes the same corpus, encodes it at -1 through the
-CLI and runs only the named phases of host-adaptive, daemon and scale
+CLI and runs only the named phases of host-adaptive, daemon, devtime and
+scale
 (the scale phase on a mesh of every visible card, for a host with
 several).
 
@@ -187,6 +206,10 @@ T_STEPS = 4096
 PATHS = (("-1", ("encode_walk",)), ("-3", ("encode_walk",)),
          ("-5", ("encode_walk", "evolve_128", "evolve_256", "tiny_evolve",
                  "rc_encode_walk")))
+# the e2e phase's -5 run: the corpus's first E2E_ADAPTIVE_MB MB (its
+# 256 MB at 0.85 MB/s took 308 s, and with it the whole smoke reached its
+# 1,200 s limit on a slower card machine)
+E2E_ADAPTIVE_MB = 128
 # (preset, prefix MB) encoded on the card and on the CPU, and the CPU
 # encodes' limit
 PREFIXES = (("-1", 4), ("-5", 1))
@@ -202,14 +225,22 @@ SCALE_PREFIX_MB = 8
 SCALE_BLK = 250_000
 DIST_TIMEOUT_S = 600
 # host-adaptive phase: (run, prefix MB, extra CLI arguments) of -e host -5
-# with FQZ5_DEVICE_ADAPTIVE=1: one whole -5 block; 16 blocks of 1 MB
-HOST_ADAPTIVE_RUNS = (("100 MB", 100, []),
+# with FQZ5_DEVICE_ADAPTIVE=1: one -5 block (50 MB, half a whole one, so
+# that the smoke stays inside its time limit); 16 blocks of 1 MB
+HOST_ADAPTIVE_RUNS = (("50 MB", 50, []),
                       ("16 MB -b 1000000", 16, ["-b", "1000000"]))
 ADAPTIVE_KERNELS = ("evolve_128", "evolve_256", "tiny_evolve",
                     "rc_encode_walk")
 # daemon phase: the prefix of its concurrent and start-up requests
 DAEMON_PREFIX_MB = 4
 STARTUP_RUNS = 5
+# the C client (bin/fqz5-torch), built by the script into this directory
+CLIENT = os.path.join("bin", "fqz5-torch")
+CLIENT_EXE = os.path.join("build", "fqz5_torch_client", "fqz5-torch")
+# a cancelled job: seconds to wait for its CUDA context, and for the job
+# and its context to be gone after its client is killed
+CANCEL_START_S = 120
+CANCEL_GONE_S = 15
 # corrupt archives a preset in the corrupt phase, and each decode's limit
 CORRUPT_SEEDS = 8
 CORRUPT_TIMEOUT_S = 300
@@ -2414,6 +2445,130 @@ def daemon_serve(sock: str, work: str) -> int:
     return daemon.serve(sock, quiet=True)
 
 
+def job_children(server_pid: int) -> list:
+    """The daemon server's job children: its child processes that lead
+    their own process group (daemon._run_child)."""
+    kids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fp:
+                fields = fp.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == server_pid and int(fields[2]) == int(name):
+            kids.append(int(name))
+    return kids
+
+
+def gpu_apps() -> list:
+    """[(pid, used memory)] of the processes holding a CUDA context, as
+    nvidia-smi --query-compute-apps lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return [tuple(x.strip() for x in line.split(",", 1))
+            for line in out.splitlines() if line.strip()]
+
+
+def _has_nvidia_fd(pid: int) -> bool:
+    """Whether process pid has a /dev/nvidia* device open (a CUDA
+    context)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def cancel_on_card(sock: str, server_pid: int, src: str, work: str,
+                   env: dict) -> None:
+    """A -5 encode of src through the C client, killed (SIGKILL) once its
+    job child holds a CUDA context: within CANCEL_GONE_S the child must
+    be gone from /proc and from nvidia-smi's compute apps, and its output
+    must stop growing.  nvidia-smi may list pids of another namespace (in
+    some containers every entry reads pid 1); then the child's context
+    is the entry that appeared beside a /dev/nvidia* fd of the child,
+    and the list must shrink back to its length before the job."""
+    before = gpu_apps()
+    out = os.path.join(work, "cancel-5.fqz5")
+    err_path = os.path.join(work, "cancel.err")
+    with open(err_path, "wb") as err:
+        cp = subprocess.Popen([CLIENT, "-5", "-V", src, out], cwd=ROOT,
+                              env=env, stdin=subprocess.DEVNULL,
+                              stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        t1 = time.monotonic()
+        kid = None
+        while True:
+            if cp.poll() is not None:
+                with open(err_path) as fp:
+                    raise RuntimeError(f"the -5 client exited {cp.returncode}"
+                                       f" before it was killed: "
+                                       f"{fp.read()[-2000:]}")
+            if time.monotonic() - t1 > CANCEL_START_S:
+                raise RuntimeError(f"no CUDA context of the -5 job in "
+                                   f"{CANCEL_START_S} s (nvidia-smi "
+                                   f"{gpu_apps()}, job {kid})")
+            kids = job_children(server_pid)
+            if kids:
+                kid, = kids
+                apps = gpu_apps()
+                if any(pid == str(kid) for pid, _ in apps) or (
+                        len(apps) > len(before) and _has_nvidia_fd(kid)):
+                    break
+            time.sleep(0.2)
+        held = time.monotonic() - t1
+        cp.kill()
+        cp.wait(timeout=60)
+        t2 = time.monotonic()
+        while True:
+            after = gpu_apps()
+            if (not os.path.exists(f"/proc/{kid}")
+                    and not any(pid == str(kid) for pid, _ in after)
+                    and len(after) <= len(before)):
+                break
+            if time.monotonic() - t2 > CANCEL_GONE_S:
+                alive = os.path.exists(f"/proc/{kid}")
+                raise AssertionError(
+                    f"the -5 job {kid} outlived its killed client by "
+                    f"{CANCEL_GONE_S} s: in /proc {alive}, nvidia-smi "
+                    f"{after} (before the job {before})")
+            time.sleep(0.1)
+        gone_s = time.monotonic() - t2
+        size = os.path.getsize(out) if os.path.exists(out) else 0
+        time.sleep(1.0)
+        if (os.path.getsize(out) if os.path.exists(out) else 0) != size:
+            raise AssertionError("the cancelled job's output still grows")
+        log(f"daemon cancel: the -5 job {kid} held a CUDA context after "
+            f"{held:.3f} s (nvidia-smi {apps}, before the job {before}); its "
+            f"client was killed, and the job and its context were gone "
+            f"{gone_s:.3f} s later (nvidia-smi {after}); output {size} "
+            f"bytes, not growing")
+    finally:
+        if cp.poll() is None:
+            cp.kill()
+            cp.wait()
+    _child_records(work)   # none is expected from the killed job
+    if os.path.exists(out):
+        os.remove(out)
+
+
+def seq_qual_bytes(path: str) -> int:
+    """Bytes of the sequence and quality lines of a FASTQ file."""
+    with open(path, "rb") as fp:
+        lines = fp.read().split(b"\n")
+    return sum(len(x) for x in lines[1::4]) + sum(len(x) for x in lines[3::4])
+
+
 def _child_records(work: str) -> list:
     """The daemon children's records (daemon_serve) written so far; each
     is removed once read."""
@@ -2431,11 +2586,18 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
     """The daemon phase: the port's daemon (--daemon-serve, a subprocess)
     on the card.  The corpus at -1 through it (equal to the e2e archive
     comp1), its -d (equal to the source) and again with FQZ5_DEC_V3=1
-    forwarded; two concurrent requests (a -1 encode of a 4 MB prefix and
-    the decode of that prefix's archive), each equal to its direct run;
-    five -1 encodes of the prefix through it and five as fresh processes,
-    each wall time logged with the children's first CUDA call.  Every
-    child's launch counts must show its path's kernels."""
+    forwarded; the corpus at -1 and its -d again through the C client
+    (bin/fqz5-torch, built here at first use); two concurrent requests (a
+    -1 encode of a 4 MB prefix and the decode of that prefix's archive),
+    each equal to its direct run; five -1 encodes of the prefix each
+    through the C client, daemon.request and as fresh processes, and five
+    requests that fail at once through the C client and the Python
+    launcher, each wall time logged with the children's first CUDA
+    call.  Then a -5 encode of the corpus through the C client, killed
+    once its job holds a CUDA context (cancel_on_card), after which the
+    server must answer ping and a -1 encode of the prefix through the C
+    client must equal its direct run.  Every child's launch counts must
+    show its path's kernels."""
     import threading
 
     sys.path.insert(0, ROOT)
@@ -2456,10 +2618,31 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
                     f"; first CUDA call {rec['first_cuda_s']} s, "
                     f"child {rec['seconds']} s")
 
-    def job(what, argv, need, decoders, size):
+    cenv = {k: v for k, v in os.environ.items() if k != "FQZ5_NO_DAEMON"}
+    cenv["FQZ5_DAEMON"] = sock
+
+    def send(argv, via):
+        """(exit code, stderr) of argv through daemon.request, the C
+        client or the Python launcher (a fresh interpreter)."""
+        if via == "request":
+            return daemon.request(sock, argv), ""
+        entry = ([CLIENT] if via == "client" else
+                 [sys.executable, "-m", "fqzcomp5_tpu_torch.launcher"])
+        r = subprocess.run([*entry, *argv], cwd=ROOT, env=cenv,
+                           stderr=subprocess.PIPE, text=True,
+                           timeout=CPU_ENCODE_TIMEOUT_S)
+        if via == "client" and ("warning" in r.stderr or not os.access(
+                os.path.join(ROOT, CLIENT_EXE), os.X_OK)):
+            raise RuntimeError(f"the C client was not built: "
+                               f"{r.stderr[-2000:]}")
+        return r.returncode, r.stderr
+
+    def job(what, argv, need, decoders, size, via="request"):
+        """One request through send(); its wall seconds."""
         t1 = time.monotonic()
-        rc = daemon.request(sock, argv)
+        rc, _ = send(argv, via)
         sec = time.monotonic() - t1
+        what = f"{what}{'' if via == 'request' else f' ({via})'}"
         if rc != 0:
             raise RuntimeError(f"daemon {what}: {argv} exited {rc}")
         rec, = _child_records(work)
@@ -2482,12 +2665,23 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
                                  "library and leave CUDA uninitialised")
         comp = os.path.join(work, "daemon-1.fqz5")
         out = os.path.join(work, "daemon.fastq")
-        job("-1 encode of the corpus", ["-1", "-V", src, comp],
-            ["encode_walk"], {}, nbytes)
-        same(comp, comp1)
-        job("-1 decode of the corpus", ["-d", "-V", comp, out], [],
-            dec_paths, nbytes)
-        same(src, out)
+        secs = {}
+        for client in (False, True):
+            secs[client] = (
+                job("-1 encode of the corpus", ["-1", "-V", src, comp],
+                    ["encode_walk"], {}, nbytes,
+                    "client" if client else "request"),
+                job("-1 decode of the corpus", ["-d", "-V", comp, out],
+                    ["decode_o0", "decode_o1"] if client else [], dec_paths,
+                    nbytes, "client" if client else "request"))
+            same(comp, comp1)
+            same(src, out)
+        log("daemon: the corpus at -1, encode and decode, through the C "
+            "client " + ", ".join(f"{s:.3f} s = {nbytes / s / 1e6:.2f} MB/s"
+                                 for s in secs[True])
+            + "; through daemon.request "
+            + ", ".join(f"{s:.3f} s = {nbytes / s / 1e6:.2f} MB/s"
+                        for s in secs[False]))
         os.environ["FQZ5_DEC_V3"] = "1"
         try:
             job("-1 decode of the corpus, FQZ5_DEC_V3=1 forwarded",
@@ -2529,13 +2723,14 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
         log(f"daemon: a -1 encode and a decode of the {DAEMON_PREFIX_MB} MB "
             f"prefix at once, {sec:.3f} s, each equal to its direct run")
 
-        walls = {"daemon": [], "fresh": []}
-        for _ in range(STARTUP_RUNS):
-            walls["daemon"].append(job(
-                f"-1 encode of the {DAEMON_PREFIX_MB} MB prefix",
-                ["-1", "-V", pre, enc], ["encode_walk"], {},
-                os.path.getsize(pre)))
-            same(enc, direct)
+        walls = {"client": [], "request": [], "fresh": []}
+        for via in ("client", "request"):
+            for _ in range(STARTUP_RUNS):
+                walls[via].append(job(
+                    f"-1 encode of the {DAEMON_PREFIX_MB} MB prefix",
+                    ["-1", "-V", pre, enc], ["encode_walk"], {},
+                    os.path.getsize(pre), via))
+                same(enc, direct)
         for _ in range(STARTUP_RUNS):
             t1 = time.monotonic()
             subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
@@ -2544,10 +2739,40 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
             walls["fresh"].append(time.monotonic() - t1)
             same(enc, direct)
         log(f"daemon start-up: -1 encodes of the {DAEMON_PREFIX_MB} MB prefix "
-            f"through the daemon {[round(s, 3) for s in walls['daemon']]} s; "
-            f"as fresh processes {[round(s, 3) for s in walls['fresh']]} s")
+            f"through the C client {walls['client']} s; through "
+            f"daemon.request (in this process) {walls['request']} s; as "
+            f"fresh processes {walls['fresh']} s")
+        # a job that fails at once, on the host: the client's own cost
+        # and the round trip, without a CUDA context
+        fails = {"client": [], "launcher": []}
+        for via in fails:
+            for _ in range(STARTUP_RUNS):
+                t1 = time.monotonic()
+                rc, err = send(["-e", "host", "-1", os.path.join(
+                    work, "absent.fastq"), enc + ".x"], via)
+                fails[via].append(time.monotonic() - t1)
+                if rc != 1 or not err.startswith("ERROR:"):
+                    raise RuntimeError(f"a failing request through the "
+                                       f"{via}: rc {rc}, {err[-500:]}")
+        _child_records(work)
+        log(f"daemon round trips: a request that fails at once (-e host, "
+            f"no input) through the C client {fails['client']} s; through "
+            f"the Python launcher {fails['launcher']} s")
+
+        cancel_on_card(sock, server.pid, src, work, cenv)
+        if not daemon.request(sock, None, op="ping"):
+            raise RuntimeError("the daemon stopped answering after a "
+                               "cancelled job")
+        job(f"-1 encode of the {DAEMON_PREFIX_MB} MB prefix after the "
+            f"cancelled job", ["-1", "-V", pre, enc], ["encode_walk"], {},
+            os.path.getsize(pre), "client")
+        same(enc, direct)
         for p in (pre, direct, enc, dec):
             os.remove(p)
+    except Exception:
+        with open(err_path, errors="replace") as fp:
+            log(f"the daemon's stderr: {fp.read()[-3000:]}")
+        raise
     finally:
         daemon.stop(sock)
         try:
@@ -2555,6 +2780,65 @@ def daemon_phase(src: str, nbytes: int, work: str, comp1: str,
         except subprocess.TimeoutExpired:
             server.kill()
             server.wait()
+
+
+def devtime_phase(src: str, nbytes: int, work: str, comp1: str,
+                  counts: Counts) -> None:
+    """The devtime phase: FQZ5_DEVTIME's accounting (ops/devtimer.py) on
+    the card, in-process.  The corpus at -1 (encode, cmp with the e2e
+    archive comp1; decode, cmp with the source) and the 1 MB prefix at -5
+    (cmp with its encode without the switch), each with the counts set
+    to 0 before it and read after it.  Logs link_s, link_bytes, compute_s,
+    compute_calls and the wall seconds of each run; compute_calls must be
+    > 0, and on the corpus link_bytes must be at least its seq+qual
+    bytes."""
+    from fqzcomp5_tpu_torch.ops import devtimer
+
+    pre = os.path.join(work, "devtime-prefix.fastq")
+    prefix_copy(src, pre, 1_000_000)
+    ref5 = os.path.join(work, "devtime-ref-5.fqz5")
+    t1 = time.monotonic()
+    run_cli(["-5", "-V", pre, ref5])
+    off5 = time.monotonic() - t1
+    sq = seq_qual_bytes(src)
+    comp = os.path.join(work, "devtime-1.fqz5")
+    out = os.path.join(work, "devtime.fastq")
+    comp5 = os.path.join(work, "devtime-5.fqz5")
+    runs = (("-1 encode of the corpus", ["-1", "-V", src, comp], comp, comp1,
+             ["encode_walk"], {}, sq),
+            ("-1 decode of the corpus", ["-d", "-V", comp, out], out, src,
+             [], {"decode_o0": "decode_o0", "decode_o1": "decode_o1"}, sq),
+            ("-5 encode of the 1 MB prefix", ["-5", "-V", pre, comp5], comp5,
+             ref5, ["encode_walk", *ADAPTIVE_KERNELS], {}, 0))
+    try:
+        for what, argv, got, want, need, decoders, min_bytes in runs:
+            counts.reset()
+            devtimer.enabled = True
+            devtimer.reset()
+            t1 = time.monotonic()
+            try:
+                run_cli(argv)
+                wall = time.monotonic() - t1
+                snap = devtimer.snapshot()
+            finally:
+                devtimer.enabled = False
+            counts.read(f"devtime {what}", need, decoders)
+            same(got, want)
+            log(f"devtime {what}: wall {wall} s; {json.dumps(snap)}"
+                + (f" (without FQZ5_DEVTIME: {off5} s)"
+                   if got == comp5 else ""))
+            if snap["compute_calls"] <= 0 or snap["link_bytes"] < max(
+                    min_bytes, 1):
+                raise AssertionError(
+                    f"devtime {what}: {snap}; link_bytes must be at least "
+                    f"{max(min_bytes, 1)} and compute_calls above 0")
+        log(f"devtime: each archive equals its run without FQZ5_DEVTIME; "
+            f"the corpus's seq+qual bytes {sq}")
+    finally:
+        devtimer.reset()
+        for p in (pre, ref5, comp, out, comp5):
+            if os.path.exists(p):
+                os.remove(p)
 
 
 class LaunchShapes:
@@ -2779,7 +3063,7 @@ def profile_main(np, torch, levels: str, out_dir: str, decode: bool,
     return 0
 
 
-ONLY_PHASES = ("host-adaptive", "daemon", "scale")
+ONLY_PHASES = ("host-adaptive", "daemon", "devtime", "scale")
 
 
 def only_main(np, torch, names) -> int:
@@ -2814,6 +3098,8 @@ def only_main(np, torch, names) -> int:
                 host_adaptive(work, host_jobs, counts)
             elif name == "daemon":
                 daemon_phase(src, nbytes, work, comp1, counts)
+            elif name == "devtime":
+                devtime_phase(src, nbytes, work, comp1, counts)
             else:
                 scale(src, nbytes, work, comp1, scale_mesh(torch),
                       torch.device("cuda", 0), [], counts)
@@ -2957,7 +3243,8 @@ def main() -> int:
         dense_o0_edge_cases(np, torch, dev)
         bnd_o0_edge_cases(np, torch, dev)
         kres.update(adaptive_kernels_vs_plain(np, torch, dev))
-        walk_times(np, torch, dev)
+        # the decode walks' round trips at the main path's launch shapes
+        walk_times(np, torch, dev, decode_only=True)
         phase("kernels", t0)
 
         counts = Counts()
@@ -2968,11 +3255,17 @@ def main() -> int:
         phase("adaptive", t0)
 
         t0 = time.monotonic()
+        src5 = os.path.join(work, "e2e-5.fastq")
+        prefix_copy(src, src5, E2E_ADAPTIVE_MB * 1_000_000)
         for lvl, runs in PATHS:
             counts.reset()
             torch.cuda.reset_peak_memory_stats()
             with LaunchShapes(lvl):
-                comp, dec_s = e2e(src, nbytes, work, lvl)
+                if lvl == "-5":
+                    comp, dec_s = e2e(src5, os.path.getsize(src5), work,
+                                      lvl)
+                else:
+                    comp, dec_s = e2e(src, nbytes, work, lvl)
             log(f"peak device memory in the {lvl} run: "
                 f"{torch.cuda.max_memory_allocated()} bytes")
             lut_bytes = counts.read(lvl, runs, {"decode_o0": "decode_o0",
@@ -2993,6 +3286,7 @@ def main() -> int:
                 comp1 = comp   # the daemon's and scale phase's reference
             else:
                 os.remove(comp)
+        os.remove(src5)
         zero = [k for k, v in launches.items() if v == 0]
         if zero:
             raise AssertionError(f"kernels never launched on the main paths: "
@@ -3007,6 +3301,9 @@ def main() -> int:
         t0 = time.monotonic()
         daemon_phase(src, nbytes, work, comp1, counts)
         phase("daemon", t0)
+        t0 = time.monotonic()
+        devtime_phase(src, nbytes, work, comp1, counts)
+        phase("devtime", t0)
         t0 = time.monotonic()
         torch.cuda.empty_cache()
         scale(src, nbytes, work, comp1, scale_mesh(torch),

@@ -26,6 +26,7 @@ symbols or more gives no payload, and the method is skipped).
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 import struct
 import zlib
 from typing import BinaryIO
@@ -50,24 +51,33 @@ from fqzcomp5_tpu_torch.ops import adaptive_batch
 from fqzcomp5_tpu_torch.ops import backend as _bk
 from fqzcomp5_tpu_torch.mesh import Mesh
 
-WAVE = 16           # max blocks per wave
 MIN_DEVICE = 4096   # sections smaller than this stay on the host
-# a wave flushes when its seq+qual bytes reach this budget (or at WAVE
-# blocks): -1's 10 MB blocks batch many to a wave, -3's 100 MB blocks
-# two to a wave
-WAVE_BUDGET = 128_000_000
+
+
+def wave_blocks() -> int:
+    """Max blocks per wave: FQZ5_WAVE_BLOCKS (default 16), read at each
+    call."""
+    return int(os.environ.get("FQZ5_WAVE_BLOCKS", "16"))
+
+
+def wave_budget() -> int:
+    """A wave flushes when its seq+qual bytes reach this budget (or at
+    wave_blocks() blocks): FQZ5_WAVE_MB x 1e6 bytes (default 128), read
+    at each call.  -1's 10 MB blocks batch many to a wave, -3's 100 MB
+    blocks two to a wave."""
+    return int(float(os.environ.get("FQZ5_WAVE_MB", "128")) * 1e6)
 
 
 def wave_groups_from_sizes(sq_sizes: list[int]) -> list[int]:
     """Wave lengths for a stream of blocks with the given seq+qual
     byte sizes."""
-    budget = WAVE_BUDGET
+    nmax, budget = wave_blocks(), wave_budget()
     groups = []
     n = acc = 0
     for s in sq_sizes:
         n += 1
         acc += s
-        if n >= WAVE or acc >= budget:
+        if n >= nmax or acc >= budget:
             groups.append(n)
             n = acc = 0
     if n:
@@ -599,7 +609,7 @@ def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
             out_fp.write(blk)
             t.append_block(bt, arg.verbose)
 
-    budget = WAVE_BUDGET
+    nmax, budget = wave_blocks(), wave_budget()
     wave: list[fastq.FastqBatch] = []
     acc = 0
     for fq in batches:
@@ -607,7 +617,7 @@ def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
             break
         wave.append(fq)
         acc += len(fq.seq_buf) + len(fq.qual_buf)
-        if len(wave) >= WAVE or acc >= budget:
+        if len(wave) >= nmax or acc >= budget:
             flush_wave(wave)
             wave = []
             acc = 0
@@ -833,10 +843,11 @@ def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
                     t.append_block(bt, arg.verbose)
                     writer(fq)
 
+    nmax = wave_blocks()
     wave_raw: list[bytes] = []
     for raw in container.iter_raw_blocks(in_fp, index_offset):
         wave_raw.append(raw)
-        if len(wave_raw) >= WAVE:
+        if len(wave_raw) >= nmax:
             flush(wave_raw)
             wave_raw = []
     flush(wave_raw)

@@ -19,8 +19,15 @@ Protocol (unix stream socket, one request per connection):
     {"op": "ping"} -> {"ok": true}      liveness probe
     {"op": "stop"} -> {"ok": true}      shut the daemon down
 
-Each job runs on a handler thread (fork, waitpid, reply), so concurrent
-clients run in parallel.  The server exits after ``idle_timeout``
+Each job runs on a handler thread (fork, wait, reply), so concurrent
+clients run in parallel.  The job is the leader of its own process
+group, and its handler waits on the child's exit and the connection at
+once: when the client hangs up before the job ends (Ctrl-C, SIGKILL),
+the handler sends the group SIGTERM, then SIGKILL for what is left of
+it once the child has exited or KILL_GRACE_S has passed, reaps the
+child and sends no reply, as a direct run would have stopped with its
+caller.  A client therefore keeps its end of the connection open
+until the reply arrives.  The server exits after ``idle_timeout``
 seconds without a request (``FQZ5_DAEMON_IDLE`` for ``--daemon``), and
 retires when the staleness token changes: the mtimes and sizes of the
 port's ``.py`` sources, its kernel sources (``csrc/*.cu``, ``*.cuh``)
@@ -46,7 +53,10 @@ Where it differs from the JAX package's daemon:
   request that is not a job are closed;
 - once a job request has been delivered, a lost reply is a failure:
   ``request`` reports it and returns LOST_RC, and the caller must not
-  run the job again in-process.
+  run the job again in-process;
+- a job whose client hangs up before it ends is killed with its process
+  group, so Ctrl-C on a client (``daemon.request`` or the C client,
+  ``bin/fqz5-torch``) stops the job as it would stop a direct run.
 """
 
 from __future__ import annotations
@@ -54,13 +64,16 @@ from __future__ import annotations
 import array
 import json
 import os
+import select
 import signal
 import socket
 import sys
+import threading
 import time
 
 _MAX_REQ = 1 << 20
 RECV_TIMEOUT_S = 2.0
+KILL_GRACE_S = 2.0
 LOST_RC = 1
 _FORWARDED = ("TMPDIR", "CUDA_VISIBLE_DEVICES")
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -146,6 +159,76 @@ def _close_all(fds) -> None:
             pass
 
 
+def _hung_up(conn) -> bool:
+    """True when the client has closed its end of the connection (EOF or
+    a reset).  Stray bytes after the request line are discarded."""
+    try:
+        data = conn.recv(4096, socket.MSG_DONTWAIT)
+    except BlockingIOError:
+        return False
+    except OSError:
+        return True
+    return not data
+
+
+def _exit_fd(pid: int) -> int:
+    """An fd that polls readable once child pid has exited, before it is
+    reaped: the read end of a pipe whose write end a thread closes once
+    waitid(WEXITED | WNOWAIT) sees the exit.  (Not a pidfd: some
+    container runtimes' kernels answer pidfd_open with ENOSYS.)"""
+    r, w = os.pipe()
+
+    def watch():
+        try:
+            os.waitid(os.P_PID, pid, os.WEXITED | os.WNOWAIT)
+        except OSError:
+            pass   # already reaped: the handler is done with r
+        finally:
+            os.close(w)
+
+    threading.Thread(target=watch, daemon=True).start()
+    return r
+
+
+def _wait_job(pid: int, conn) -> int | None:
+    """Wait for job child pid or the client's hang-up, whichever comes
+    first, without a polling tick: one poll over the child's exit fd
+    (_exit_fd) and the connection.  Returns the child's exit code (128 +
+    N for signal N), or None when the client hung up first: the job's
+    process group then gets SIGTERM and, once the child has exited or
+    KILL_GRACE_S has passed, SIGKILL for whatever is left of it (before
+    the child is reaped, so its pid, which names the group, cannot have
+    been reused), and the child is reaped."""
+    exit_fd = _exit_fd(pid)
+    try:
+        poller = select.poll()
+        poller.register(exit_fd, select.POLLIN)
+        poller.register(conn.fileno(), select.POLLIN)
+        cancelled = False
+        while True:
+            ready = dict(poller.poll())
+            if exit_fd in ready:
+                break
+            if _hung_up(conn):
+                cancelled = True
+                break
+        if cancelled:
+            for sig in (signal.SIGTERM, signal.SIGKILL):
+                try:
+                    os.killpg(pid, sig)
+                except OSError:
+                    pass  # the group has gone
+                if sig == signal.SIGTERM:
+                    select.select([exit_fd], [], [], KILL_GRACE_S)
+        _, status = os.waitpid(pid, 0)
+    finally:
+        os.close(exit_fd)
+    if cancelled:
+        return None
+    rc = os.waitstatus_to_exitcode(status)
+    return 128 - rc if rc < 0 else rc   # killed by signal N -> 128 + N
+
+
 def _preload() -> None:
     """Import the heavy modules once so that every forked child inherits
     them warm (torch, numpy, the CLI and its engines, the kernel
@@ -175,6 +258,9 @@ def _run_child(req, fds) -> None:
     environment, and run the normal CLI main."""
     rc = 1
     try:
+        # the job's own process group, which _handle kills when the
+        # client hangs up (set on both sides of the fork: no race)
+        os.setpgid(0, 0)
         # serve()'s SIGTERM/SIGINT handlers would raise into job code
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         signal.signal(signal.SIGINT, signal.SIG_DFL)
@@ -216,7 +302,6 @@ def serve(socket_path: str | None = None, *, quiet: bool = False,
     retirement; 1 when a daemon already answers on the socket or it
     cannot be bound."""
     import stat as stat_m
-    import threading
 
     path = socket_path or default_socket_path()
     try:
@@ -254,22 +339,25 @@ def serve(socket_path: str | None = None, *, quiet: bool = False,
     workers: list[threading.Thread] = []
 
     def _handle(conn, req, fds):
-        """One job: fork, wait, relay rc.  No imports here: the fork
-        must never race an import lock."""
+        """One job: fork, wait for the child or the client's hang-up,
+        relay rc (or cancel the job).  No imports here: the fork must
+        never race an import lock."""
         try:
             pid = os.fork()
             if pid == 0:
                 srv.close()
                 conn.close()
                 _run_child(req, fds)  # never returns
-            _, status = os.waitpid(pid, 0)
-            rc = os.waitstatus_to_exitcode(status)
-            if rc < 0:  # killed by signal N -> 128 + N
-                rc = 128 - rc
             try:
-                _send_line(conn, {"rc": rc})
+                os.setpgid(pid, pid)
             except OSError:
-                pass  # the client went away
+                pass  # the child has set it already, or has exited
+            rc = _wait_job(pid, conn)
+            if rc is not None:
+                try:
+                    _send_line(conn, {"rc": rc})
+                except OSError:
+                    pass  # the client went away
         finally:
             _close_all(fds)
             conn.close()

@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from fqzcomp5_tpu_torch.codecs import native
-from fqzcomp5_tpu_torch.ops import (backend, rans_bnd_torch, rans_cuda_bnd,
-                                    rans_cuda_dec)
+from fqzcomp5_tpu_torch.ops import (backend, devtimer, rans_bnd_torch,
+                                    rans_cuda_bnd, rans_cuda_dec)
 from fqzcomp5_tpu_torch.ops.rans_torch import (MASK12, RANS_L, TF_SHIFT,
                                                tables_from_numpy)
 from fqzcomp5_tpu_torch.mesh import Mesh, split_rows
@@ -114,7 +114,7 @@ def _assemble_payload(head: bytes, Rf: np.ndarray, cwords: np.ndarray,
 
 
 def _to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return devtimer.put(arr, device)
 
 
 # ---------------------------------------------------------------------
@@ -404,8 +404,8 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
                 _to(t_real[lo:hi], dev), Tmax))
 
     def _finish():
-        syms = np.concatenate([p[0].cpu().numpy() for p in parts])
-        Rf = np.concatenate([p[1].cpu().numpy()
+        syms = np.concatenate([devtimer.get(p[0]) for p in parts])
+        Rf = np.concatenate([devtimer.get(p[1])
                              for p in parts]).view(np.uint32)
         out = []
         for b, sz in enumerate(out_szs):
@@ -487,7 +487,7 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
     def _finish():
         out = [b""] * B
         for shift, idxs, words, s3s, parts in groups:
-            syms, Rf, ptrf = (np.concatenate([p[k].cpu().numpy()
+            syms, Rf, ptrf = (np.concatenate([devtimer.get(p[k])
                                               for p in parts])
                               for k in range(3))
             Rf = Rf.view(np.uint32)

@@ -29,10 +29,13 @@ falls back to the host codecs: a device error propagates.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from fqzcomp5_tpu_torch.ops import fqz_model_torch, model_cuda, rc_cuda
+from fqzcomp5_tpu_torch.ops import (devtimer, fqz_model_torch, model_cuda,
+                                    rc_cuda)
 from fqzcomp5_tpu_torch.ops.fqz_device_encode import (MID_LEN0, MID_SEL,
                                                       build_stream,
                                                       prepare_fqz)
@@ -44,10 +47,16 @@ from fqzcomp5_tpu_torch.mesh import Mesh, first_device, split_rows
 
 JOB_OFF = 1 << 32        # > any local model id (4^14 seq ctx, 2^16+6 fqz)
 CHUNK_T = 1 << 22        # pass-3 steps per kernel launch
-BATCH_BUDGET = 128 << 20  # input bytes of the jobs encoded together
 
 # global model families
 F_T4, F_T2, F_N128, F_W256 = 0, 1, 2, 3
+
+
+def _batch_budget_bytes() -> int:
+    """Input bytes of the jobs encoded together: FQZ5_ADAPTIVE_BATCH_MB
+    MiB (default 128), read at each call.  Jobs share no state, so the
+    split never changes a payload's bytes."""
+    return int(os.environ.get("FQZ5_ADAPTIVE_BATCH_MB", "128")) << 20
 
 
 def _prep_job(job, device: torch.device):
@@ -97,8 +106,8 @@ class DevTriples:
         """Scatter a bucket's flat plane cells `cell` to event positions
         `posn`.  The plane may lie on another device (a mesh's range):
         its cells are gathered there and copied here."""
-        p = torch.from_numpy(posn).to(self.device)
-        c = torch.from_numpy(cell).to(cf.device)
+        p = devtimer.put(posn, self.device)
+        c = devtimer.put(cell, cf.device)
         self.cf[p] = cf.reshape(-1)[c].to(self.device)
         self.tot[p] = tot.reshape(-1)[c].to(self.device)
 
@@ -146,7 +155,7 @@ def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples,
 
             def run_on(walk):
                 def run(sp, ct, r):
-                    ms = torch.from_numpy(ms_rows[r]).to(sp.device)
+                    ms = devtimer.put(ms_rows[r], sp.device)
                     return walk(sp, ct, ms)
                 return run
             wide = ms_rows > 128
@@ -177,19 +186,18 @@ class _RcRange:
         dev = self.cf.device
         n = np.clip(self.lens - t0, 0, CHUNK_T)
         self.cap = cap_for(int(n.max()), self.ff_max)
-        off = torch.from_numpy(self.starts + np.minimum(t0, self.lens)).to(dev)
+        off = devtimer.put(self.starts + np.minimum(t0, self.lens), dev)
         self.out, self.totals, self.state = rc_cuda.encode_walk(
-            self.cf, self.tot, off,
-            torch.from_numpy(n.astype(np.int32)).to(dev), self.state,
-            self.cap)
+            self.cf, self.tot, off, devtimer.put(n.astype(np.int32), dev),
+            self.state, self.cap)
 
     def collect(self) -> None:
         """Copy the launched chunk's bytes back."""
-        totals = self.totals.cpu().numpy()
+        totals = devtimer.get(self.totals)
         if int(totals.max()) > self.cap:
             raise RuntimeError(f"range coder emitted {int(totals.max())} "
                                f"bytes into room for {self.cap}")
-        by = self.out[:, :max(int(totals.max()), 1)].cpu().numpy()
+        by = devtimer.get(self.out[:, :max(int(totals.max()), 1)])
         for b, part in enumerate(self.parts):
             part.append(by[b, :totals[b]].tobytes())
         self.ff_max = int(self.state[3].max())
@@ -240,13 +248,15 @@ def encode_adaptive_batch(jobs, device: torch.device | Mesh
     slevel) tuples.  Returns each job's complete section payload ('fqz'
     payloads include the native wire header),
     byte-identical to the host codecs, or None for a job the fqz codec
-    declines.  Jobs whose summed input exceeds BATCH_BUDGET run as
-    several independent batches."""
+    declines.  Jobs whose summed input exceeds the batch budget
+    (_batch_budget_bytes, FQZ5_ADAPTIVE_BATCH_MB) run as several
+    independent batches."""
+    budget = _batch_budget_bytes()
     outs: list = []
     chunk: list = []
     acc = 0
     for j in jobs:
-        if chunk and acc + len(j[1]) > BATCH_BUDGET:
+        if chunk and acc + len(j[1]) > budget:
             outs.extend(_encode_chunk(chunk, device))
             chunk, acc = [], 0
         chunk.append(j)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fqzcomp5_tpu_torch.ops import rans_cuda
+from fqzcomp5_tpu_torch.ops import devtimer, rans_cuda
 
 
 class deferred_walks:
@@ -61,7 +61,7 @@ class LazyFlat:
         """(B,) emitted-word count per stream (payload size is tables +
         128 state bytes + 2 * nwords)."""
         if self._nw is None:
-            self._nw = np.concatenate([nw.cpu().numpy().astype(np.int64)
+            self._nw = np.concatenate([devtimer.get(nw).astype(np.int64)
                                        for _, _, nw in self._parts])
         return self._nw
 
@@ -84,9 +84,10 @@ class LazyFlat:
             cap = words.shape[1]
             flat = torch.cat([words[i - base, cap - int(nw[i]):]
                               for i in mine])
-            flat = flat.cpu().numpy().view(np.uint16)
-            rows = torch.tensor([i - base for i in mine], device=Rf_d.device)
-            Rf = Rf_d.index_select(0, rows).cpu().numpy().view(np.uint32)
+            flat = devtimer.get(flat).view(np.uint16)
+            rows = devtimer.put(np.array([i - base for i in mine], np.int64),
+                                Rf_d.device)
+            Rf = devtimer.get(Rf_d.index_select(0, rows)).view(np.uint32)
             off = 0
             for j, i in enumerate(mine):
                 n = int(nw[i])

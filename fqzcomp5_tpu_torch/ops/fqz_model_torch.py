@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from fqzcomp5_tpu_torch.mesh import Mesh, split_rows
+from fqzcomp5_tpu_torch.ops import devtimer
 
 K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel normalisation bound
 TINY_MAX = 255                # TinyModel: halve at pre-bump tot >= 255
@@ -341,8 +342,8 @@ def evolve_grouped(g, run, device: torch.device | Mesh, rows=None,
                 posn = posmap[posn]
             # a range of rows owns a contiguous run of the events
             ev_end = np.concatenate(([0], np.cumsum(seg)))
-            launched = [(run(torch.from_numpy(sp[lo:hi]).to(dev),
-                             torch.from_numpy(seg32[lo:hi]).to(dev),
+            launched = [(run(devtimer.put(sp[lo:hi], dev),
+                             devtimer.put(seg32[lo:hi], dev),
                              r[lo:hi]), lo, hi)
                         for dev, lo, hi in split_rows(device, len(sel))]
             for (cf, tt), lo, hi in launched:
@@ -351,10 +352,10 @@ def evolve_grouped(g, run, device: torch.device | Mesh, rows=None,
                 if collect is not None:
                     collect.add(cf, tt, posn[e], c)
                 else:
-                    cfh = cf.reshape(-1).cpu().numpy().view(np.uint32)[c]
+                    cfh = devtimer.get(cf.reshape(-1)).view(np.uint32)[c]
                     out[0][posn[e]] = cfh >> 16
                     out[1][posn[e]] = cfh & 0xFFFF
-                    out[2][posn[e]] = tt.reshape(-1).cpu().numpy()[c]
+                    out[2][posn[e]] = devtimer.get(tt.reshape(-1))[c]
             done[sel] = True
         if tbe >= maxc or done.all():
             break

@@ -5,13 +5,15 @@
 (``fqz_model_torch.evolve_ref``/``tiny_evolve_ref``) for tensors on the
 CPU and launch the kernel for tensors on a CUDA device; there is no
 other route.  Each wrapper's ``launches`` counts its kernel launches.
+Under ``FQZ5_DEVTIME`` each call is one ``devtimer`` compute span
+(``devtimer.timed``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fqzcomp5_tpu_torch.ops import _build, fqz_model_torch
+from fqzcomp5_tpu_torch.ops import _build, devtimer, fqz_model_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 
 
@@ -44,6 +46,7 @@ def _evolve(symplane, counts, max_sym, step_inc: int, cap: int, wrapper):
     return cf, tot
 
 
+@devtimer.timed
 def evolve_128(symplane: torch.Tensor, counts: torch.Tensor,
                max_sym: torch.Tensor, step_inc: int = 16):
     """AdaptiveModels of up to 128 symbols: symplane (C, T) uint8,
@@ -52,12 +55,14 @@ def evolve_128(symplane: torch.Tensor, counts: torch.Tensor,
     return _evolve(symplane, counts, max_sym, step_inc, 128, evolve_128)
 
 
+@devtimer.timed
 def evolve_256(symplane: torch.Tensor, counts: torch.Tensor,
                max_sym: torch.Tensor, step_inc: int = 16):
     """evolve_128 for models of up to 256 symbols."""
     return _evolve(symplane, counts, max_sym, step_inc, 256, evolve_256)
 
 
+@devtimer.timed
 def tiny_evolve(symplane: torch.Tensor, counts: torch.Tensor, nsym: int):
     """TinyModels of nsym (2 or 4) symbols: symplane (C, T) uint8,
     counts (C,) int32 -> (cf, tot) (C, T) int32; see

@@ -3,14 +3,15 @@
 ``encode_walk`` takes the plain version (``rans_torch.encode_walk_ref``)
 for tensors on the CPU and launches the kernel for tensors on a CUDA
 device; there is no other route.  ``encode_walk.launches`` counts kernel
-launches.
+launches.  Under ``FQZ5_DEVTIME`` each call is one ``devtimer`` compute
+span (``devtimer.timed``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fqzcomp5_tpu_torch.ops import _build, rans_torch
+from fqzcomp5_tpu_torch.ops import _build, devtimer, rans_torch
 
 
 def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
@@ -24,6 +25,7 @@ def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+@devtimer.timed
 def encode_walk(idx: torch.Tensor, tab: torch.Tensor, shift: int,
                 R0: torch.Tensor | None = None,
                 nsym: torch.Tensor | None = None):

@@ -3,16 +3,17 @@
 
 ``decode_bnd_o0`` and ``decode_dense_o1`` take the plain versions
 (``rans_bnd_torch.decode_bnd_o0_ref``/``decode_dense_o1_ref``) for
-tensors on the CPU and launch their kernels for tensors on a CUDA device;
-there is no other route.  Each wrapper's ``launches`` attribute counts
-its kernel launches.
+tensors on the CPU and launch their kernels for tensors on a CUDA
+device; there is no other route.  Each wrapper's ``launches`` attribute
+counts its kernel launches.  Under ``FQZ5_DEVTIME`` each call is one
+``devtimer`` compute span (``devtimer.timed``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fqzcomp5_tpu_torch.ops import _build, rans_bnd_torch
+from fqzcomp5_tpu_torch.ops import _build, devtimer, rans_bnd_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 from fqzcomp5_tpu_torch.ops.rans_torch import TF_SHIFT
 
@@ -33,6 +34,7 @@ def _common(words, R0, t_real, T, shift):
     return B, W, dev, syms, Rf, ptrf
 
 
+@devtimer.timed
 def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                   f0: torch.Tensor, t_real: torch.Tensor, T: int, S: int, *,
                   packed: bool, shift: int = TF_SHIFT):
@@ -65,6 +67,7 @@ def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
     return syms, Rf, ptrf
 
 
+@devtimer.timed
 def decode_dense_o1(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                     t_real: torch.Tensor, T: int, shift: int, A: int,
                     A1: int, last0: int):

@@ -2,16 +2,17 @@
 
 ``decode_o0`` and ``decode_o1`` take the plain versions
 (``rans_torch.decode_o0_ref``/``decode_o1_ref``) for tensors on the CPU
-and launch their kernels for tensors on a CUDA device; there is no
-other route.  Each wrapper's ``launches`` attribute counts its kernel
-launches.
+and launch their kernels for tensors on a CUDA device; there is no other
+route.  Each wrapper's ``launches`` attribute counts its kernel
+launches.  Under ``FQZ5_DEVTIME`` each call is one ``devtimer`` compute
+span (``devtimer.timed``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fqzcomp5_tpu_torch.ops import _build, rans_torch
+from fqzcomp5_tpu_torch.ops import _build, devtimer, rans_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 
 
@@ -27,6 +28,7 @@ def _check_common(words, R0, s3, t_real, s3_width):
     return B, W, dev
 
 
+@devtimer.timed
 def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
               t_real: torch.Tensor, T: int):
     """Order-0 decode walk at shift 12; see rans_torch.decode_o0_ref
@@ -53,6 +55,7 @@ def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
     return syms, Rf
 
 
+@devtimer.timed
 def decode_o1(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
               t_real: torch.Tensor, T: int, shift: int):
     """Order-1 decode walk; see rans_torch.decode_o1_ref for the

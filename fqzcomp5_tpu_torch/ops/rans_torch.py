@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fqzcomp5_tpu_torch.ops import devtimer
+
 N = 32            # interleaved states
 RANS_L = 1 << 15
 TF_SHIFT = 12     # order-0
@@ -132,7 +134,7 @@ def tables_from_numpy(a: np.ndarray, kind: str, *, shift: int = TF_SHIFT,
         a = np.asarray(a, np.uint32).view(np.int32)
     else:
         raise ValueError(f"unknown table kind {kind!r}")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return devtimer.put(a, device)
 
 
 def enc_symbols(tab, shift: int):

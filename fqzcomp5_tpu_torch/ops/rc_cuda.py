@@ -3,17 +3,19 @@
 ``encode_walk`` takes the plain version (``rc_torch.encode_walk_ref``)
 for tensors on the CPU and launches the kernel for tensors on a CUDA
 device; there is no other route.  ``encode_walk.launches`` counts kernel
-launches.
+launches.  Under ``FQZ5_DEVTIME`` each call is one ``devtimer`` compute
+span (``devtimer.timed``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from fqzcomp5_tpu_torch.ops import _build, rc_torch
+from fqzcomp5_tpu_torch.ops import _build, devtimer, rc_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 
 
+@devtimer.timed
 def encode_walk(cf: torch.Tensor, tot: torch.Tensor, off: torch.Tensor,
                 n: torch.Tensor, state: torch.Tensor, cap: int):
     """B range coders over contiguous step ranges; see

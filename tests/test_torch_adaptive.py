@@ -377,8 +377,8 @@ def test_batch_budget_split_and_empty_jobs(monkeypatch):
     jobs = [_seq_case(21, alphabet=b"ACGT"),
             ("seq", b"", np.zeros(0, np.uint32), 0, 10),
             _fqz_case(22, nrec=1), _seq_case(23, both=1, slevel=12)]
-    monkeypatch.setattr(adaptive_batch, "BATCH_BUDGET",
-                        max(len(j[1]) for j in jobs) + 1)
+    monkeypatch.setattr(adaptive_batch, "_batch_budget_bytes",
+                        lambda: max(len(j[1]) for j in jobs) + 1)
     got = adaptive_batch.encode_adaptive_batch(jobs, CPU)
     assert got == [_host_encode(j) for j in jobs]
 

@@ -9,11 +9,11 @@ client's fallback, the verbs and a stale socket, the launcher's routing
 and its opt-out) and what the port's differs in: staleness after a
 kernel source changes, its own default socket, CUDA_VISIBLE_DEVICES
 forwarded, a stalled client that cannot wedge the server and whose fds
-are closed, and a reply lost after delivery that fails the job instead of
-running it again.  Each test has its own socket under tmp_path, every
-wait has a deadline and every subprocess a time limit, and no server
-outlives its test; FQZ5_NO_DAEMON=1 is set wherever the launcher could
-spawn one.
+are closed, a reply lost after delivery that fails the job instead of
+running it again, and a job cancelled when its client dies.  Each test
+has its own socket under tmp_path, every wait has a deadline and every
+subprocess a time limit, and no server outlives its test;
+FQZ5_NO_DAEMON=1 is set wherever the launcher could spawn one.
 """
 
 import array
@@ -28,6 +28,7 @@ import time
 
 import pytest
 
+import chip_smoke
 from fqzcomp5_tpu import daemon as jdaemon
 from fqzcomp5_tpu_torch import cli, daemon, launcher
 
@@ -432,3 +433,65 @@ def test_lost_reply_after_delivery_fails_and_does_not_rerun(tmp_path,
         assert len(got) == 2 and all(b'"argv"' in m for m in got)
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("client", ["request", "c"])
+def test_client_death_cancels_the_job(tmp_path, data_dir, client):
+    """A -e host -1 job reading the client's stdin, a pipe held open:
+    SIGKILL on the client (daemon.request in a subprocess, or the C
+    client) kills the job within 10 s, its output stops growing, and the
+    server goes on serving."""
+    sock = str(tmp_path / "d.sock")
+    if client == "c":
+        if shutil.which(os.environ.get("CC", "cc")) is None:
+            pytest.skip("no C compiler")
+        from tests.test_torch_client import client_tree
+
+        cmd = [client_tree(str(tmp_path / "tree"))]
+        env = _env(FQZ5_DAEMON=sock)
+        env.pop("FQZ5_NO_DAEMON")
+    else:
+        cmd = [sys.executable, "-c", _CLIENT, sock]
+        env = _env()
+    p = _serve(sock)
+    try:
+        sample = (data_dir / "sample.fastq").read_bytes()
+        out, err = tmp_path / "out.fqz5", tmp_path / "err"
+        with open(out, "wb") as fo, open(err, "wb") as fe:
+            cp = subprocess.Popen(cmd + ["-e", "host", "-1"],
+                                  stdin=subprocess.PIPE, stdout=fo,
+                                  stderr=fe, env=env, cwd=ROOT)
+        try:
+            cp.stdin.write(sample[:len(sample) // 2])
+            cp.stdin.flush()
+            deadline = time.monotonic() + 60
+            while not (kids := chip_smoke.job_children(p.pid)):
+                assert cp.poll() is None, err.read_bytes()
+                assert time.monotonic() < deadline, "the job never started"
+                time.sleep(0.05)
+            kid, = kids
+            cp.kill()
+            cp.wait(timeout=30)
+            deadline = time.monotonic() + 10
+            while os.path.exists(f"/proc/{kid}"):
+                assert time.monotonic() < deadline, \
+                    "the job outlived its client"
+                time.sleep(0.05)
+            size = out.stat().st_size
+            time.sleep(0.5)
+            assert out.stat().st_size == size
+            assert chip_smoke.job_children(p.pid) == []
+        finally:
+            if cp.poll() is None:
+                cp.kill()
+                cp.wait()
+            try:
+                cp.stdin.close()
+            except BrokenPipeError:
+                pass
+        arc = tmp_path / "after.fqz5"
+        argv = ["-e", "host", "-1", "-V", str(data_dir / "sample.fastq")]
+        assert daemon.request(sock, argv + [str(arc)]) == 0
+        assert arc.read_bytes() == _direct(tmp_path, argv, "direct.fqz5")
+    finally:
+        _stop(sock, p)

@@ -45,10 +45,11 @@ def test_pack_unpack_stripe_equal_originals():
 
 
 def test_flags_and_wave_sizing_equal_originals():
-    for name in ("X_PACK", "X_32", "X_STRIPE", "X_NOSZ", "X_CAT", "WAVE",
+    for name in ("X_PACK", "X_32", "X_STRIPE", "X_NOSZ", "X_CAT",
                  "MIN_DEVICE", "_RANS_FAMILY"):
         assert getattr(cuda_driver, name) == getattr(tpu_driver, name)
-    assert cuda_driver.WAVE_BUDGET == tpu_driver._wave_budget()
+    assert cuda_driver.wave_blocks() == tpu_driver.WAVE
+    assert cuda_driver.wave_budget() == tpu_driver._wave_budget()
     rng = np.random.default_rng(4)
     for sizes in ([], [5] * 40, rng.integers(1, 90_000_000, 30).tolist(),
                   [200_000_000, 1, 1]):
