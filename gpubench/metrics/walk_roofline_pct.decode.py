@@ -1,0 +1,13 @@
+"""The decode launches' least time over their device time: the sum of
+each launch's least time (gbench.roofline: symbols and compressed bytes
+over the memory rate, or its integer operations over the integer rate,
+whichever is longer) over the profiler's time of the program's kernels
+that started inside the decode spans."""
+
+
+def read(trace):
+    least = sum(x["least_s"] for x in trace.launches if x["span"] == "decode")
+    kernel_s = trace.kernel_us("decode") / 1e6
+    if not kernel_s or not least:
+        return None
+    return 100.0 * least / kernel_s
