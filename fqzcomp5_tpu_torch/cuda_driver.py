@@ -28,6 +28,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import os
 import struct
+import time
 import zlib
 from typing import BinaryIO
 
@@ -47,7 +48,7 @@ from fqzcomp5_tpu_torch.engine_cuda import (decode_o0_batch,
                                             decode_o1_batch,
                                             encode_o0_batch_lazy,
                                             encode_o1_batch_lazy)
-from fqzcomp5_tpu_torch.ops import adaptive_batch
+from fqzcomp5_tpu_torch.ops import adaptive_batch, devtimer
 from fqzcomp5_tpu_torch.ops import backend as _bk
 from fqzcomp5_tpu_torch.mesh import Mesh
 
@@ -92,6 +93,7 @@ X_NOSZ = 0x10
 X_CAT = 0x20
 
 _RANS_FAMILY = 0x3FE  # method bits 1..9: RANS0..RANSXN1
+_TRIED_BITS = 0x7FFFFFFE  # method bits 1..30: what compress_with_methods tries
 _FQZ_METHODS = (Method.FQZ0, Method.FQZ1, Method.FQZ2, Method.FQZ3,
                 Method.FQZ4)
 
@@ -184,10 +186,12 @@ class _RansWave:
         big = set(self.big_idx)
         for i, d in enumerate(datas):
             if i not in big:
+                devtimer.count("candidate_bytes", len(d))
                 self.out_host[i] = host.rans_compress(d, 1)
         if not self.big_idx:
             return
-        self.packs = [pack_np(datas[i]) for i in self.big_idx]
+        with devtimer.span("prep/pack"):
+            self.packs = [pack_np(datas[i]) for i in self.big_idx]
         jobs = [datas[i] for i in self.big_idx]
         self.pk_pos = {}
         for k, p in enumerate(self.packs):
@@ -200,17 +204,27 @@ class _RansWave:
         # of the sections', so mixing them would pad every stream to
         # the longest job's step count
         if fixed_lens is not None:
-            for k, i in enumerate(self.big_idx):
-                N = fixed_lens[i] if i < len(fixed_lens) else 0
-                if 1 < N <= 255 and len(datas[i]) // N >= 64:
-                    stripes = stripe_split(datas[i], N)
-                    self.st_pos[k] = len(sjobs)
-                    self.st_stripes[k] = stripes
-                    sjobs.extend(stripes)
-        self.enc0 = encode_o0_batch_lazy(jobs, device)
-        self.enc1 = encode_o1_batch_lazy(jobs, device)
-        self.senc0 = encode_o0_batch_lazy(sjobs, device) if sjobs else None
-        self.senc1 = encode_o1_batch_lazy(sjobs, device) if sjobs else None
+            with devtimer.span("prep/stripe"):
+                for k, i in enumerate(self.big_idx):
+                    N = fixed_lens[i] if i < len(fixed_lens) else 0
+                    if 1 < N <= 255 and len(datas[i]) // N >= 64:
+                        stripes = stripe_split(datas[i], N)
+                        self.st_pos[k] = len(sjobs)
+                        self.st_stripes[k] = stripes
+                        sjobs.extend(stripes)
+        # every stream walks at order 0 and at order 1
+        devtimer.count("candidate_bytes",
+                       2 * (sum(map(len, jobs)) + sum(map(len, sjobs))))
+        with devtimer.span("prep/o0"):
+            self.enc0 = encode_o0_batch_lazy(jobs, device)
+        with devtimer.span("prep/o1"):
+            self.enc1 = encode_o1_batch_lazy(jobs, device)
+        self.senc0 = self.senc1 = None
+        if sjobs:
+            with devtimer.span("prep/o0"):
+                self.senc0 = encode_o0_batch_lazy(sjobs, device)
+            with devtimer.span("prep/o1"):
+                self.senc1 = encode_o1_batch_lazy(sjobs, device)
 
     def plan(self) -> list[int]:
         """Per-section framed payload length (aligned with datas)."""
@@ -348,16 +362,18 @@ def _adaptive_jobs_host(jobs):
     """Host-codec encode of adaptive jobs (sections under MIN_DEVICE).
     A job the codec declines yields None, the reference's NULL-return
     method skip."""
+    devtimer.count("adaptive_jobs_host", len(jobs))
     outs = []
-    for j in jobs:
-        try:
-            if j[0] == "seq":
-                outs.append(host.seq_encode(j[1], j[2], j[3], j[4]))
-            else:
-                outs.append(host.fqz_compress(j[1], j[2], j[3], j[4],
-                                              j[5]))
-        except ValueError:
-            outs.append(None)
+    with devtimer.span("driver/adaptive_small"):
+        for j in jobs:
+            try:
+                if j[0] == "seq":
+                    outs.append(host.seq_encode(j[1], j[2], j[3], j[4]))
+                else:
+                    outs.append(host.fqz_compress(j[1], j[2], j[3], j[4],
+                                                  j[5]))
+            except ValueError:
+                outs.append(None)
     return outs
 
 
@@ -368,8 +384,10 @@ def _adaptive_jobs(jobs, device: torch.device | Mesh):
     outs = [None] * len(jobs)
     big = [k for k, j in enumerate(jobs) if len(j[1]) >= MIN_DEVICE]
     small = [k for k, j in enumerate(jobs) if len(j[1]) < MIN_DEVICE]
-    for k, pay in zip(small, _adaptive_jobs_host([jobs[k] for k in small])):
-        outs[k] = pay
+    if small:
+        for k, pay in zip(small,
+                          _adaptive_jobs_host([jobs[k] for k in small])):
+            outs[k] = pay
     if big:
         pays = adaptive_batch.encode_adaptive_batch([jobs[k] for k in big],
                                                     device)
@@ -385,7 +403,8 @@ class _SegmentTask:
     plan() encodes the adaptive jobs, reads sizes, picks winners and
     records trials, prefetch() and finish() copy back and frame the
     winners.  The best method per block wins with the host's ascending
-    method tie-break (fqzcomp5.c:2106, strictly smaller)."""
+    method tie-break (fqzcomp5.c:2106, strictly smaller).  Each stage
+    runs through step(), which adds its host wall to host_s."""
 
     def __init__(self, learner, arg, blocks, sec, datas, seg, mask, trial,
                  results, device):
@@ -399,6 +418,15 @@ class _SegmentTask:
         self.trial = trial
         self.results = results
         self.device = device
+        self.host_s = 0.0
+
+    def step(self, name: str, stage) -> None:
+        """stage() under the devtimer span name, its wall added to
+        host_s (the -v report's section seconds)."""
+        t0 = time.perf_counter()
+        with devtimer.span(name):
+            stage()
+        self.host_s += time.perf_counter() - t0
 
     def start(self) -> None:
         seg, mask, datas, blocks = (self.seg, self.mask, self.datas,
@@ -413,8 +441,10 @@ class _SegmentTask:
             self.rep = (rans_mask & -rans_mask).bit_length() - 1
         self.lzp = {}
         if mask & bit(Method.LZP3):
-            for i in seg:
-                self.lzp[i] = host.rans_compress(host.lzp(datas[i]), 5)
+            devtimer.count("candidate_bytes", sum(len(datas[i]) for i in seg))
+            with devtimer.span("driver/lzp3"):
+                for i in seg:
+                    self.lzp[i] = host.rans_compress(host.lzp(datas[i]), 5)
 
         jobs, jobmeta = [], []
 
@@ -441,6 +471,7 @@ class _SegmentTask:
                     jobmeta.append((i, int(m), 1))
         self.jobs = jobs
         self.jobmeta = jobmeta
+        devtimer.count("candidate_bytes", sum(len(j[1]) for j in jobs))
 
     def plan(self) -> None:
         seg, datas = self.seg, self.datas
@@ -514,6 +545,8 @@ def _section_tasks(learner, arg, blocks, sec, datas, results, device):
                     break
                 seg.append(bi + len(seg))
             trial = False
+        devtimer.count("trial_blocks" if trial else "locked_blocks",
+                       len(seg))
         yield _SegmentTask(learner, arg, blocks, sec, datas, seg, mask,
                            trial, results, device)
         bi = seg[-1] + 1
@@ -525,77 +558,95 @@ def encode_wave_blocks(learner: MethodLearner, arg: Options,
                        ) -> list[tuple[bytes, Timings]]:
     """Encode one wave of batches into serialized blocks (framing + CRC
     included).  SEQ and QUAL segments run in lockstep, so both
-    sections' candidate walks are in flight together."""
-    qual_blocks = [fq for fq in wave if not fq.is_fasta]
-    seqs: list = [None] * len(wave)
-    quals: list = [None] * len(qual_blocks)
-    gens = [
-        _section_tasks(learner, arg, wave, Section.SEQ,
-                       [fq.seq_buf for fq in wave], seqs, device),
-        _section_tasks(learner, arg, qual_blocks, Section.QUAL,
-                       [fq.qual_buf for fq in qual_blocks], quals, device),
-    ]
-    pending = [next(g, None) for g in gens]
-    while any(p is not None for p in pending):
-        act = [p for p in pending if p is not None]
-        with _bk.deferred_walks():
+    sections' candidate walks are in flight together.  Each block's
+    Timings: see drivers.Timings."""
+    with devtimer.span("driver/wave"):
+        devtimer.count("waves", 1)
+        qual_blocks = [fq for fq in wave if not fq.is_fasta]
+        seqs: list = [None] * len(wave)
+        quals: list = [None] * len(qual_blocks)
+        gens = [
+            _section_tasks(learner, arg, wave, Section.SEQ,
+                           [fq.seq_buf for fq in wave], seqs, device),
+            _section_tasks(learner, arg, qual_blocks, Section.QUAL,
+                           [fq.qual_buf for fq in qual_blocks], quals,
+                           device),
+        ]
+        sec_s = {Section.SEQ: 0.0, Section.QUAL: 0.0}
+        pending = [next(g, None) for g in gens]
+        while any(p is not None for p in pending):
+            act = [p for p in pending if p is not None]
+            with _bk.deferred_walks():
+                for tk in act:
+                    tk.step("driver/start", tk.start)
             for tk in act:
-                tk.start()
-        for tk in act:
-            tk.plan()
-        with _bk.deferred_walks():
+                tk.step("driver/plan", tk.plan)
+            with _bk.deferred_walks():
+                for tk in act:
+                    tk.step("driver/assemble", tk.prefetch)
             for tk in act:
-                tk.prefetch()
-        for tk in act:
-            tk.finish()
-        pending = [next(g, None) if p is not None else None
-                   for g, p in zip(gens, pending)]
-    results = []
-    qi = 0
-    for w, fq in enumerate(wave):
-        out = bytearray()
-        out += struct.pack("<I", 0)
-        out += struct.pack("<I", fq.num_records)
-        out += struct.pack("<I", 0)
-        npay, _, _ = compress_with_methods(
-            learner, arg, fq, learner.methods_for(Section.NAME),
-            Section.NAME, fq.name_buf)
-        out += npay
-        if fq.fixed_len:
-            v = varint.put_u32(fq.fixed_len)
-            out += bytes([len(v)]) + v
-            len_csize = 1 + len(v)
-        else:
-            blob = varint.put_array_u32(fq.lens)
-            out += bytes([0]) + struct.pack("<I", len(blob)) + blob
-            len_csize = 5 + len(blob)
-        sstrat, spay = seqs[w]
-        out += struct.pack("<BII", sstrat, len(fq.seq_buf),
-                           len(spay)) + spay
-        if not fq.is_fasta:
-            qstrat, qpay = quals[qi]
-            out += struct.pack("<BII", qstrat, len(fq.qual_buf),
-                               len(qpay)) + qpay
-            qi += 1
-        else:
-            out += struct.pack("<BII", 0, 0, 0)
-        crc = zlib.crc32(bytes(out[12:])) & 0xFFFFFFFF
-        struct.pack_into("<I", out, 8, crc)
-        struct.pack_into("<I", out, 0, len(out) - 4)
+                tk.step("driver/assemble", tk.finish)
+                sec_s[tk.sec] += tk.host_s
+            pending = [next(g, None) if p is not None else None
+                       for g, p in zip(gens, pending)]
+        seq_bytes = max(1, sum(len(fq.seq_buf) for fq in wave))
+        qual_bytes = max(1, sum(len(fq.qual_buf) for fq in qual_blocks))
+        results = []
+        qi = 0
+        for w, fq in enumerate(wave):
+            out = bytearray()
+            out += struct.pack("<I", 0)
+            out += struct.pack("<I", fq.num_records)
+            out += struct.pack("<I", 0)
+            nmask = learner.methods_for(Section.NAME)
+            devtimer.count("candidate_bytes", len(fq.name_buf)
+                           * bin(nmask & _TRIED_BITS).count("1"))
+            t0 = time.perf_counter()
+            with devtimer.span("driver/names"):
+                npay, _, _ = compress_with_methods(
+                    learner, arg, fq, nmask, Section.NAME, fq.name_buf)
+            name_s = time.perf_counter() - t0
+            with devtimer.span("driver/frame"):
+                out += npay
+                if fq.fixed_len:
+                    v = varint.put_u32(fq.fixed_len)
+                    out += bytes([len(v)]) + v
+                    len_csize = 1 + len(v)
+                else:
+                    blob = varint.put_array_u32(fq.lens)
+                    out += bytes([0]) + struct.pack("<I", len(blob)) + blob
+                    len_csize = 5 + len(blob)
+                sstrat, spay = seqs[w]
+                out += struct.pack("<BII", sstrat, len(fq.seq_buf),
+                                   len(spay)) + spay
+                if not fq.is_fasta:
+                    qstrat, qpay = quals[qi]
+                    out += struct.pack("<BII", qstrat, len(fq.qual_buf),
+                                       len(qpay)) + qpay
+                    qi += 1
+                else:
+                    out += struct.pack("<BII", 0, 0, 0)
+                crc = zlib.crc32(bytes(out[12:])) & 0xFFFFFFFF
+                struct.pack_into("<I", out, 8, crc)
+                struct.pack_into("<I", out, 0, len(out) - 4)
 
-        bt = Timings()
-        bt.update(0, len(fq.name_buf), len(npay), 0.0)
-        bt.update(3, 4 * fq.num_records, len_csize, 0.0)
-        bt.update(1, len(fq.seq_buf), len(spay) + 9, 0.0)
-        if not fq.is_fasta:
-            bt.update(2, len(fq.qual_buf), len(qpay) + 9, 0.0)
-        results.append((bytes(out), bt))
-    return results
+            bt = Timings()
+            bt.update(0, len(fq.name_buf), len(npay), name_s)
+            bt.update(3, 4 * fq.num_records, len_csize, 0.0)
+            bt.update(1, len(fq.seq_buf), len(spay) + 9,
+                      sec_s[Section.SEQ] * len(fq.seq_buf) / seq_bytes)
+            if not fq.is_fasta:
+                bt.update(2, len(fq.qual_buf), len(qpay) + 9,
+                          sec_s[Section.QUAL] * len(fq.qual_buf)
+                          / qual_bytes)
+            results.append((bytes(out), bt))
+        return results
 
 
 def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
                   device: torch.device | Mesh) -> None:
-    container.write_header(out_fp)
+    with devtimer.span("parse/container"):
+        container.write_header(out_fp)
     idx = container.FileIndex()
     learner = MethodLearner()
     learner.method_avail = method_avail_for(arg)
@@ -605,8 +656,9 @@ def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
             return
         for (blk, bt), fq in zip(
                 encode_wave_blocks(learner, arg, wave, device), wave):
-            idx.add(out_fp.tell(), len(fq.seq_buf), fq.num_records)
-            out_fp.write(blk)
+            with devtimer.span("driver/write"):
+                idx.add(out_fp.tell(), len(fq.seq_buf), fq.num_records)
+                out_fp.write(blk)
             t.append_block(bt, arg.verbose)
 
     nmax, budget = wave_blocks(), wave_budget()
@@ -623,14 +675,20 @@ def encode_stream(batches, out_fp: BinaryIO, arg: Options, t: Timings,
             acc = 0
     flush_wave(wave)
 
-    index_offset = out_fp.tell()
-    container.write_index(out_fp, idx)
-    container.patch_index_offset(out_fp, index_offset)
+    with devtimer.span("parse/container"):
+        index_offset = out_fp.tell()
+        container.write_index(out_fp, idx)
+        container.patch_index_offset(out_fp, index_offset)
 
 
 def _batches(parser, blk_size: int):
     while True:
-        b = parser.next_batch(blk_size)
+        with devtimer.span("parse/batch"):
+            b = parser.next_batch(blk_size)
+            if b is not None:
+                devtimer.count("blocks", 1)
+                devtimer.count("parse_bytes", len(b.name_buf)
+                               + len(b.seq_buf) + len(b.qual_buf))
         if b is None:
             return
         yield b
@@ -638,15 +696,19 @@ def _batches(parser, blk_size: int):
 
 def encode_file(in_path, out_fp: BinaryIO, arg: Options, t: Timings,
                 device: torch.device | Mesh) -> None:
-    parser = fastq.Parser(fastq.open_input(in_path))
-    encode_stream(_batches(parser, arg.blk_size), out_fp, arg, t, device)
+    # the parser, held only by the batch generator, is freed inside the
+    # span: its buffers' release is the encode's time
+    with devtimer.span("encode"):
+        encode_stream(_batches(fastq.Parser(fastq.open_input(in_path)),
+                               arg.blk_size), out_fp, arg, t, device)
 
 
 def encode_paired(in1, in2, out_fp: BinaryIO, arg: Options, t: Timings,
                   device: torch.device | Mesh) -> None:
-    parser = fastq.InterleavedParser(
-        fastq.open_input(in1), fastq.open_input(in2))
-    encode_stream(_batches(parser, arg.blk_size), out_fp, arg, t, device)
+    with devtimer.span("encode"):
+        encode_stream(_batches(fastq.InterleavedParser(
+            fastq.open_input(in1), fastq.open_input(in2)), arg.blk_size),
+            out_fp, arg, t, device)
 
 
 # ---------------------------------------------------------------------
@@ -769,85 +831,119 @@ def decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
     """Decode an archive, writing batches through `writer`.  `tables`
     picks the rANS decode walks' table form ("lut" or "boundary", see
     engine_cuda.decode_o0_batch)."""
-    file_version, index_offset = container.read_header(in_fp)
+    with devtimer.span("decode"):
+        _decode_file(in_fp, writer, arg, t, device, tables)
+
+
+def _decode_file(in_fp: BinaryIO, writer, arg: Options, t: Timings,
+                 device: torch.device | Mesh, tables: str) -> None:
+    with devtimer.span("parse/container"):
+        file_version, index_offset = container.read_header(in_fp)
 
     def flush(wave):
         if not wave:
             return
-        jobs0, jobs1 = [], []    # (key, body, osize, post)
-        stripe_parts = {}         # (i, sec) -> [None|bytes per stripe]
-        stripe_ulen = {}
-        for i, raw in enumerate(wave):
-            m = _split_block(raw, file_version)
-            for sec in ("seq", "qual"):
-                strat, ulen, payload = m[sec]
-                if strat != 0:
-                    continue
-                st = _parse_stripe_job(payload)
-                if st is not None:
-                    s_ulen, subs = st
-                    stripe_ulen[(i, sec)] = s_ulen
-                    parts = [None] * len(subs)
-                    for j2, (o01, body, osize) in enumerate(subs):
-                        if o01 is None:
-                            parts[j2] = body  # CAT stripe
-                        else:
-                            (jobs1 if o01 else jobs0).append(
-                                ((i, sec, j2), body, osize, None))
-                    stripe_parts[(i, sec)] = parts
-                    continue
-                job = _parse_device_job(payload)
-                if job is None:
-                    continue
-                o01, body, osize, post = job
-                (jobs1 if o01 else jobs0).append(
-                    ((i, sec), body, osize, post))
-        dev_results = {}
+        with devtimer.span("decode/split"):
+            jobs0, jobs1, stripe_parts, stripe_ulen = _split_wave(
+                wave, file_version)
         # both orders' walks are launched before either is waited on
-        fins = [(jobs, dec([j[1] for j in jobs], [j[2] for j in jobs],
-                           device, lazy=True, tables=tables))
-                for jobs, dec in ((jobs0, decode_o0_batch),
-                                  (jobs1, decode_o1_batch)) if jobs]
+        with devtimer.span("prep/dec_tables"):
+            fins = [(jobs, dec([j[1] for j in jobs], [j[2] for j in jobs],
+                               device, lazy=True, tables=tables))
+                    for jobs, dec in ((jobs0, decode_o0_batch),
+                                      (jobs1, decode_o1_batch)) if jobs]
+        dev_results = {}
         for jobs, fin in fins:
-            for j, r in zip(jobs, fin()):
-                key = j[0]
-                if len(key) == 3:  # stripe sub-stream
-                    stripe_parts[key[:2]][key[2]] = r
-                else:
-                    dev_results[key] = j[3](r) if j[3] else r
-        for key, parts in stripe_parts.items():
-            if all(p is not None for p in parts):
-                dev_results[key] = _unstripe(parts, stripe_ulen[key])
+            with devtimer.span("prep/dec_finish"):
+                res = fin()
+            with devtimer.span("decode/unpack"):
+                for j, r in zip(jobs, res):
+                    key = j[0]
+                    if len(key) == 3:  # stripe sub-stream
+                        stripe_parts[key[:2]][key[2]] = r
+                    else:
+                        dev_results[key] = j[3](r) if j[3] else r
+        with devtimer.span("decode/unstripe"):
+            for key, parts in stripe_parts.items():
+                if all(p is not None for p in parts):
+                    dev_results[key] = _unstripe(parts, stripe_ulen[key])
 
         # residual host decode (names, adaptive and small sections)
         # threads across the wave's blocks; writes drain in order
-        def job(i, raw):
-            pre = {k[1]: v for k, v in dev_results.items() if k[0] == i}
-            bt = Timings()
-            fq = decode_block(raw, file_version, predecoded=pre,
-                              timings=bt)
+        def job(i, raw, parent=None):
+            with devtimer.span("decode/block", parent):
+                pre = {k[1]: v for k, v in dev_results.items() if k[0] == i}
+                devtimer.count("host_sections", 3 - len(pre))
+                bt = Timings()
+                fq = decode_block(raw, file_version, predecoded=pre,
+                                  timings=bt)
             return fq, bt
 
-        nthread = max(1, arg.nthread)
-        if nthread == 1 or len(wave) == 1:
-            for i, raw in enumerate(wave):
-                fq, bt = job(i, raw)
-                t.append_block(bt, arg.verbose)
+        def write(fq, bt):
+            t.append_block(bt, arg.verbose)
+            with devtimer.span("decode/write"):
                 writer(fq)
-        else:
-            with cf.ThreadPoolExecutor(max_workers=nthread) as pool:
-                futs = [pool.submit(job, i, raw)
-                        for i, raw in enumerate(wave)]
-                for f in futs:
-                    fq, bt = f.result()
-                    t.append_block(bt, arg.verbose)
-                    writer(fq)
+
+        nthread = max(1, arg.nthread)
+        with devtimer.span("decode/host_blocks"):
+            if nthread == 1 or len(wave) == 1:
+                for i, raw in enumerate(wave):
+                    write(*job(i, raw))
+            else:
+                cur = devtimer.current()
+                with cf.ThreadPoolExecutor(max_workers=nthread) as pool:
+                    futs = [pool.submit(job, i, raw, cur)
+                            for i, raw in enumerate(wave)]
+                    for f in futs:
+                        write(*f.result())
 
     nmax = wave_blocks()
+    raws = container.iter_raw_blocks(in_fp, index_offset)
     wave_raw: list[bytes] = []
-    for raw in container.iter_raw_blocks(in_fp, index_offset):
+    while True:
+        with devtimer.span("parse/container"):
+            raw = next(raws, None)
+        if raw is None:
+            break
         wave_raw.append(raw)
         if len(wave_raw) >= nmax:
             flush(wave_raw)
             wave_raw = []
     flush(wave_raw)
+
+
+def _split_wave(wave: list[bytes], file_version: int):
+    """The wave's seq and qual sections the device decodes: (order-0
+    jobs, order-1 jobs, stripe parts, stripe lengths); a job is (key,
+    body, osize, post), keyed (block, section) or (block, section,
+    stripe), and stripe_parts[(block, section)] holds a CAT stripe's
+    bytes and None where a job decodes one."""
+    jobs0, jobs1 = [], []
+    stripe_parts = {}
+    stripe_ulen = {}
+    for i, raw in enumerate(wave):
+        m = _split_block(raw, file_version)
+        for sec in ("seq", "qual"):
+            strat, ulen, payload = m[sec]
+            if strat != 0:
+                continue
+            st = _parse_stripe_job(payload)
+            if st is not None:
+                s_ulen, subs = st
+                stripe_ulen[(i, sec)] = s_ulen
+                parts = [None] * len(subs)
+                for j2, (o01, body, osize) in enumerate(subs):
+                    if o01 is None:
+                        parts[j2] = body  # CAT stripe
+                    else:
+                        (jobs1 if o01 else jobs0).append(
+                            ((i, sec, j2), body, osize, None))
+                stripe_parts[(i, sec)] = parts
+                continue
+            job = _parse_device_job(payload)
+            if job is None:
+                continue
+            o01, body, osize, post = job
+            (jobs1 if o01 else jobs0).append(
+                ((i, sec), body, osize, post))
+    return jobs0, jobs1, stripe_parts, stripe_ulen

@@ -33,7 +33,11 @@ class Timings:
     """Per-section size/time accounting (fqzcomp5.c:1815-1884).
 
     Columns follow update_stats: 0=name 1=seq 2=qual 3=length; times in
-    seconds (the reference stores µs)."""
+    seconds (the reference stores µs).  The wave engine
+    (cuda_driver.encode_wave_blocks) encodes a wave's blocks together:
+    a block's name seconds are its own, its seq and qual seconds its
+    share, by section bytes, of the host wall of its wave's seq or qual
+    segment tasks (waits for the device included)."""
 
     nblock: int = 0
     nusize: int = 0

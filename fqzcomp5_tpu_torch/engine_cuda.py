@@ -148,6 +148,7 @@ class _LazyO0:
             plane[b, :len(d)] = np.frombuffer(d, np.uint8)
         plane = plane.reshape(B, Tmax, 32)
         freqs = np.stack(freq_rows)
+        devtimer.count("walk_symbols/encode_walk", int(lens.sum()))
         self._lz = backend.LazyFlat.join([
             backend.encode_u8_lazy(
                 _to(plane[lo:hi], dev), _to(lens[lo:hi], dev),
@@ -172,13 +173,17 @@ class _LazyO0:
         if self._lz is None:
             return {}
         rows = self._lz.fetch(idxs)
-        return {i: _assemble_payload(self._tabs[i], *rows[i]) for i in rows}
+        with devtimer.span("prep/payload"):
+            return {i: _assemble_payload(self._tabs[i], *rows[i])
+                    for i in rows}
 
     def fetch_all(self) -> list[bytes]:
         if self._lz is None:
             return []
-        return [_assemble_payload(self._tabs[b], *row)
-                for b, row in enumerate(self._lz.fetch_all())]
+        rows = self._lz.fetch_all()
+        with devtimer.span("prep/payload"):
+            return [_assemble_payload(self._tabs[b], *row)
+                    for b, row in enumerate(rows)]
 
 
 def encode_o0_batch_lazy(datas: list[bytes],
@@ -254,21 +259,25 @@ class _LazyO1:
         R0 = np.full((G, 32), RANS_L, np.uint32)
         tailbs = {}
         iszs = [len(datas[i]) // 32 for i in idxs]
-        for g, i in enumerate(idxs):
-            R0[g, 31], tail = _lane31_tail(
-                np.frombuffer(datas[i], np.uint8), preps[i][1], shift)
-            tailbs[i] = np.array(tail[::-1], "<u2").tobytes()
+        with devtimer.span("prep/payload"):
+            for g, i in enumerate(idxs):
+                R0[g, 31], tail = _lane31_tail(
+                    np.frombuffer(datas[i], np.uint8), preps[i][1], shift)
+                tailbs[i] = np.array(tail[::-1], "<u2").tobytes()
         Tmax = max(1, max(iszs))
-        flat = np.empty((G, Tmax, 32), np.int32)
-        for g, i in enumerate(idxs):
-            isz = iszs[g]
-            arr = np.frombuffer(datas[i], np.uint8)
-            chunks = arr[:32 * isz].reshape(32, isz).astype(np.int32)
-            flat[g, 0] = chunks.T[0]  # ctx 0
-            flat[g, 1:isz] = chunks.T[:-1] * 256 + chunks.T[1:]
-            flat[g, isz:] = _NOP_O1
+        with devtimer.span("prep/o1_plane"):
+            flat = np.empty((G, Tmax, 32), np.int32)
+            for g, i in enumerate(idxs):
+                isz = iszs[g]
+                arr = np.frombuffer(datas[i], np.uint8)
+                chunks = arr[:32 * isz].reshape(32, isz).astype(np.int32)
+                flat[g, 0] = chunks.T[0]  # ctx 0
+                flat[g, 1:isz] = chunks.T[:-1] * 256 + chunks.T[1:]
+                flat[g, isz:] = _NOP_O1
         freqs = np.stack([preps[i][1] for i in idxs])  # (G, 256, 256)
         R0 = R0.view(np.int32)
+        # the plane's slots that are not the sentinel
+        devtimer.count("walk_symbols/encode_walk", 32 * sum(iszs))
         lz = backend.LazyFlat.join([
             backend.encode_flat_lazy(
                 _to(flat[lo:hi], dev),
@@ -307,9 +316,10 @@ class _LazyO1:
             if not sub:
                 continue
             rows = lz.fetch([gpos[i] for i in sub])
-            for i in sub:
-                out[i] = _assemble_payload(heads[i], *rows[gpos[i]],
-                                           tail=tailbs[i])
+            with devtimer.span("prep/payload"):
+                for i in sub:
+                    out[i] = _assemble_payload(heads[i], *rows[gpos[i]],
+                                               tail=tailbs[i])
         return out
 
     def fetch_all(self) -> list[bytes]:
@@ -386,6 +396,8 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     t_real = np.array([sz // 32 for sz in out_szs], np.int32)
     Tmax = max(int(t_real.max()), 1)
     words, R0 = words.view(np.int16), R0.view(np.int32)
+    devtimer.count("walk_symbols/decode_bnd_o0" if tables == "boundary"
+                   else "walk_symbols/decode_o0", 32 * int(t_real.sum()))
     if tables == "boundary":
         tab, f0, S, packed = rans_bnd_torch.o0_tables(s3s)
         decode_o0_batch.bnd_bytes += tab.nbytes + f0.nbytes
@@ -467,6 +479,8 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
             decode_o1_batch.bnd_bytes += tab.nbytes
         else:
             decode_o1_batch.s3_bytes += s3s.nbytes
+        devtimer.count("walk_symbols/decode_dense_o1" if dense
+                       else "walk_symbols/decode_o1", 32 * int(t_real.sum()))
         parts = []   # (syms, Rf, ptrf) of each row range, on its device
         for dev, lo, hi in split_rows(device, len(idxs)):
             args = (_to(words[lo:hi].view(np.int16), dev),

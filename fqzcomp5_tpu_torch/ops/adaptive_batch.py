@@ -134,38 +134,47 @@ def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples,
         sel = np.flatnonzero(fam == F)
         if not len(sel):
             continue
-        g = fqz_model_torch.group_stream(gmid[sel], sym[sel])
+        with devtimer.span("adaptive/group"):
+            g = fqz_model_torch.group_stream(gmid[sel], sym[sel])
+        # a launch's steps: its rows' event counts, known on the host
+        counts = g[1]
         kw = dict(collect=dev, posmap=sel)
         if F in (F_T4, F_T2):
             nsym = 4 if F == F_T4 else 2
 
-            def run(sp, ct, r, _n=nsym):
+            def run(sp, ct, r, _n=nsym, _c=counts):
+                devtimer.count("walk_symbols/tiny_evolve", int(_c[r].sum()))
                 return model_cuda.tiny_evolve(sp, ct, _n)
             fqz_model_torch.evolve_grouped(g, run, device, **kw)
         elif F == F_W256:
-            def run(sp, ct, r):
+            def run(sp, ct, r, _c=counts):
                 ms = torch.full((len(r),), 256, dtype=torch.int32,
                                 device=sp.device)
+                devtimer.count("walk_symbols/evolve_256", int(_c[r].sum()))
                 return model_cuda.evolve_256(sp, ct, ms)
             fqz_model_torch.evolve_grouped(g, run, device, **kw)
         else:
             # rows whose alphabet exceeds 128 slots (a wide selector
             # model) take the 256-slot walk
-            ms_rows = _row_alphabets(g[0], metas)
+            with devtimer.span("adaptive/group"):
+                ms_rows = _row_alphabets(g[0], metas)
 
-            def run_on(walk):
+            def run_on(walk, counter, _c=counts):
                 def run(sp, ct, r):
                     ms = devtimer.put(ms_rows[r], sp.device)
+                    devtimer.count(counter, int(_c[r].sum()))
                     return walk(sp, ct, ms)
                 return run
             wide = ms_rows > 128
             if wide.any():
                 fqz_model_torch.evolve_grouped(
-                    g, run_on(model_cuda.evolve_256), device,
+                    g, run_on(model_cuda.evolve_256,
+                              "walk_symbols/evolve_256"), device,
                     rows=np.flatnonzero(wide), **kw)
             if not wide.all():
                 fqz_model_torch.evolve_grouped(
-                    g, run_on(model_cuda.evolve_128), device,
+                    g, run_on(model_cuda.evolve_128,
+                              "walk_symbols/evolve_128"), device,
                     rows=np.flatnonzero(~wide), **kw)
 
 
@@ -190,6 +199,8 @@ class _RcRange:
         self.out, self.totals, self.state = rc_cuda.encode_walk(
             self.cf, self.tot, off, devtimer.put(n.astype(np.int32), dev),
             self.state, self.cap)
+        devtimer.count("walk_symbols/rc_encode_walk", int(n.sum()))
+        devtimer.count("rc_chunks", 1)
 
     def collect(self) -> None:
         """Copy the launched chunk's bytes back."""
@@ -251,6 +262,7 @@ def encode_adaptive_batch(jobs, device: torch.device | Mesh
     declines.  Jobs whose summed input exceeds the batch budget
     (_batch_budget_bytes, FQZ5_ADAPTIVE_BATCH_MB) run as several
     independent batches."""
+    devtimer.count("adaptive_jobs_device", len(jobs))
     budget = _batch_budget_bytes()
     outs: list = []
     chunk: list = []
@@ -268,7 +280,8 @@ def encode_adaptive_batch(jobs, device: torch.device | Mesh
 
 def _encode_chunk(jobs, device: torch.device | Mesh) -> list[bytes | None]:
     first = first_device(device)
-    preps = [_prep_job(j, first) for j in jobs]
+    with devtimer.span("adaptive/pass1"):
+        preps = [_prep_job(j, first) for j in jobs]
     live = [k for k, p in enumerate(preps) if p is not None]
     outs: list = [None] * len(jobs)
     if not live:
@@ -276,22 +289,25 @@ def _encode_chunk(jobs, device: torch.device | Mesh) -> list[bytes | None]:
     preps = [preps[k] for k in live]
     n_ev = np.array([len(p[2]) for p in preps], np.int64)
     total = int(n_ev.sum())
+    devtimer.count("pass2_events", total)
     jobvec = np.repeat(np.arange(len(preps), dtype=np.int64), n_ev)
     fam = np.concatenate([p[1] for p in preps])
     mid = np.concatenate([p[2] for p in preps])
     sym = np.concatenate([p[3] for p in preps])
     enc = np.concatenate([p[4] for p in preps])
 
-    dev = DevTriples(total, first)
-    _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps], dev,
-                     device)
-    cf, tot = dev.cf, dev.tot
-    if not enc.all():
-        keep = torch.from_numpy(enc).to(first)
-        cf, tot = cf[keep], tot[keep]
-    n_enc = np.array([int(p[4].sum()) for p in preps], np.int64)
-    starts = np.concatenate(([0], np.cumsum(n_enc)[:-1]))
-    payloads = rc_walk(cf, tot, starts, n_enc, device)
+    with devtimer.span("adaptive/evolve"):
+        dev = DevTriples(total, first)
+        _evolve_families(jobvec, fam, mid, sym, [p[5] for p in preps], dev,
+                         device)
+    with devtimer.span("adaptive/rc"):
+        cf, tot = dev.cf, dev.tot
+        if not enc.all():
+            keep = torch.from_numpy(enc).to(first)
+            cf, tot = cf[keep], tot[keep]
+        n_enc = np.array([int(p[4].sum()) for p in preps], np.int64)
+        starts = np.concatenate(([0], np.cumsum(n_enc)[:-1]))
+        payloads = rc_walk(cf, tot, starts, n_enc, device)
     for k, p, pay in zip(live, preps, payloads):
         outs[k] = p[0] + pay
     return outs

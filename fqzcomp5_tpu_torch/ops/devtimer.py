@@ -29,11 +29,39 @@ over-counts (the per-block route's workers all use the current stream).
 
 ``link_bytes`` counts the bytes moved in both directions.  ``enabled``
 is read from the environment once, at import; a process may set it.
+
+Spans and counters name the host's work between the device's:
+
+- ``span(name, parent=None)``: a context manager that, enabled, keeps
+  one record of the host's wall between its entry and exit in an
+  in-memory log (``Span``: request, id, parent, thread, name, t0_ns,
+  t1_ns, counts), stamped with ``time.time_ns()``, the clock
+  torch.profiler stamps its own events with.  Its parent is the
+  innermost span open on the same thread, or the one passed (a pool
+  thread's job passes ``current()`` of the thread that submitted it).
+  A span with neither is a root and opens a request: the wave engine's
+  entry points open ``encode`` and ``decode``.  Names are constants
+  ``"<layer>/<what>"`` (PERF.md lists them); ``put``/``get`` open
+  ``link/put``/``link/get`` and a ``timed`` wrapper ``kernel/<walk>``.
+- ``count(name, n)``: adds n to the counts of the request the thread's
+  innermost open span belongs to (its root's record), e.g. the symbols
+  a kernel wrapper's caller launches a walk over, counted on the host
+  beside the call, under ``walk_symbols/<walk>``.
+- ``spans()``: a copy of the log, at most MAX_SPANS records, oldest
+  first by closing time.  ``reset()`` leaves it alone.
+
+Disabled, ``span`` returns one shared null context and ``count``
+returns at once: no clock read, no allocation, no call into torch.
+The program never opens a torch.profiler range, so a profile of the
+device holds only the program's kernels and copies.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
+import itertools
 import os
 import threading
 import time
@@ -51,6 +79,14 @@ compute_calls = 0
 _lock = threading.Lock()
 _pending: list = []   # (counter, start event, end event) not yet read
 _DRAIN_AT = 1024      # fold finished pairs in once this many are pending
+
+MAX_SPANS = 65536     # records the span log keeps (the oldest go first)
+Span = collections.namedtuple(
+    "Span", "request id parent thread name t0_ns t1_ns counts")
+_log: collections.deque = collections.deque(maxlen=MAX_SPANS)
+_ids = itertools.count(1)
+_tls = threading.local()
+_NULL = contextlib.nullcontext()
 
 
 def reset() -> None:
@@ -125,15 +161,91 @@ class _Span:
                 compute_s += sec
 
 
+class _Open:
+    """One open span (see span()); appends its record on exit."""
+
+    __slots__ = ("name", "id", "parent", "root", "counts", "t0")
+
+    def __init__(self, name: str, parent: "_Open | None"):
+        self.name = name
+        self.parent = parent
+
+    def __enter__(self) -> "_Open":
+        stack = _stack()
+        parent = self.parent or (stack[-1] if stack else None)
+        self.parent = parent
+        self.id = next(_ids)
+        self.root = parent.root if parent is not None else self
+        self.counts = {} if parent is None else None
+        stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.time_ns()
+        _stack().pop()
+        p = self.parent
+        rec = Span(self.root.id, self.id, None if p is None else p.id,
+                   threading.get_ident(), self.name, self.t0, t1,
+                   self.counts)
+        with _lock:
+            _log.append(rec)
+        return False
+
+
+def _stack() -> list:
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+    return st
+
+
+def span(name: str, parent: _Open | None = None):
+    """A context manager timing the host's work under name (see the
+    module's docstring); the shared null context when disabled."""
+    if not enabled:
+        return _NULL
+    return _Open(name, parent)
+
+
+def current() -> _Open | None:
+    """The innermost span open on this thread (None when disabled or
+    when none is): what a job handed to a pool thread passes as its
+    span's parent."""
+    if not enabled:
+        return None
+    st = _stack()
+    return st[-1] if st else None
+
+
+def count(name: str, n: int) -> None:
+    """Add n to name in the counts of the current request's root (no
+    request open on this thread: nothing)."""
+    if not enabled:
+        return
+    st = _stack()
+    if st:
+        counts = st[-1].root.counts
+        with _lock:
+            counts[name] = counts.get(name, 0) + n
+
+
+def spans() -> list:
+    """A copy of the span log (Span records, in the order they closed)."""
+    with _lock:
+        return list(_log)
+
+
 def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on device (a timed upload when enabled)."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if not enabled:
         return t.to(device)
     device = torch.device(device)
-    span = _Span("link", device)
-    out = t.to(device)
-    span.end(t.numel() * t.element_size())
+    with span("link/put"):
+        sp = _Span("link", device)
+        out = t.to(device)
+        sp.end(t.numel() * t.element_size())
     return out
 
 
@@ -141,9 +253,10 @@ def get(t: torch.Tensor) -> np.ndarray:
     """Tensor -> host numpy array (a timed download when enabled)."""
     if not enabled:
         return t.cpu().numpy()
-    span = _Span("link", t.device)
-    out = t.cpu().numpy()
-    span.end(out.nbytes)
+    with span("link/get"):
+        sp = _Span("link", t.device)
+        out = t.cpu().numpy()
+        sp.end(out.nbytes)
     return out
 
 
@@ -153,20 +266,25 @@ def compute(thunk, device: torch.device):
     the device already (put) for the attribution to be honest."""
     if not enabled:
         return thunk()
-    span = _Span("compute", torch.device(device))
+    sp = _Span("compute", torch.device(device))
     out = thunk()
-    span.end()
+    sp.end()
     return out
 
 
-def timed(wrapper):
-    """Decorate a kernel wrapper whose first argument is a tensor on the
-    device it runs on: when enabled, each call is one compute() span
-    (the kernel's launch on a CUDA device, its plain version on the
-    CPU); disabled, a plain call-through."""
-    @functools.wraps(wrapper)
-    def call(*args, **kw):
-        if not enabled:
-            return wrapper(*args, **kw)
-        return compute(lambda: wrapper(*args, **kw), args[0].device)
-    return call
+def timed(walk: str):
+    """Decorator of a kernel wrapper whose first argument is a tensor on
+    the device it runs on: when enabled, each call is one compute()
+    span inside a ``kernel/<walk>`` span; disabled, a plain
+    call-through."""
+    name = "kernel/" + walk
+
+    def deco(wrapper):
+        @functools.wraps(wrapper)
+        def call(*args, **kw):
+            if not enabled:
+                return wrapper(*args, **kw)
+            with span(name):
+                return compute(lambda: wrapper(*args, **kw), args[0].device)
+        return call
+    return deco

@@ -46,7 +46,7 @@ def _evolve(symplane, counts, max_sym, step_inc: int, cap: int, wrapper):
     return cf, tot
 
 
-@devtimer.timed
+@devtimer.timed("evolve_128")
 def evolve_128(symplane: torch.Tensor, counts: torch.Tensor,
                max_sym: torch.Tensor, step_inc: int = 16):
     """AdaptiveModels of up to 128 symbols: symplane (C, T) uint8,
@@ -55,14 +55,14 @@ def evolve_128(symplane: torch.Tensor, counts: torch.Tensor,
     return _evolve(symplane, counts, max_sym, step_inc, 128, evolve_128)
 
 
-@devtimer.timed
+@devtimer.timed("evolve_256")
 def evolve_256(symplane: torch.Tensor, counts: torch.Tensor,
                max_sym: torch.Tensor, step_inc: int = 16):
     """evolve_128 for models of up to 256 symbols."""
     return _evolve(symplane, counts, max_sym, step_inc, 256, evolve_256)
 
 
-@devtimer.timed
+@devtimer.timed("tiny_evolve")
 def tiny_evolve(symplane: torch.Tensor, counts: torch.Tensor, nsym: int):
     """TinyModels of nsym (2 or 4) symbols: symplane (C, T) uint8,
     counts (C,) int32 -> (cf, tot) (C, T) int32; see

@@ -25,7 +25,7 @@ def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-@devtimer.timed
+@devtimer.timed("encode_walk")
 def encode_walk(idx: torch.Tensor, tab: torch.Tensor, shift: int,
                 R0: torch.Tensor | None = None,
                 nsym: torch.Tensor | None = None):

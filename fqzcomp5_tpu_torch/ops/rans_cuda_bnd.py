@@ -34,7 +34,7 @@ def _common(words, R0, t_real, T, shift):
     return B, W, dev, syms, Rf, ptrf
 
 
-@devtimer.timed
+@devtimer.timed("decode_bnd_o0")
 def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                   f0: torch.Tensor, t_real: torch.Tensor, T: int, S: int, *,
                   packed: bool, shift: int = TF_SHIFT):
@@ -67,7 +67,7 @@ def decode_bnd_o0(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
     return syms, Rf, ptrf
 
 
-@devtimer.timed
+@devtimer.timed("decode_dense_o1")
 def decode_dense_o1(words: torch.Tensor, R0: torch.Tensor, tab: torch.Tensor,
                     t_real: torch.Tensor, T: int, shift: int, A: int,
                     A1: int, last0: int):

@@ -28,7 +28,7 @@ def _check_common(words, R0, s3, t_real, s3_width):
     return B, W, dev
 
 
-@devtimer.timed
+@devtimer.timed("decode_o0")
 def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
               t_real: torch.Tensor, T: int):
     """Order-0 decode walk at shift 12; see rans_torch.decode_o0_ref
@@ -55,7 +55,7 @@ def decode_o0(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
     return syms, Rf
 
 
-@devtimer.timed
+@devtimer.timed("decode_o1")
 def decode_o1(words: torch.Tensor, R0: torch.Tensor, s3: torch.Tensor,
               t_real: torch.Tensor, T: int, shift: int):
     """Order-1 decode walk; see rans_torch.decode_o1_ref for the

@@ -15,7 +15,7 @@ from fqzcomp5_tpu_torch.ops import _build, devtimer, rc_torch
 from fqzcomp5_tpu_torch.ops.rans_cuda import _check
 
 
-@devtimer.timed
+@devtimer.timed("rc_encode_walk")
 def encode_walk(cf: torch.Tensor, tot: torch.Tensor, off: torch.Tensor,
                 n: torch.Tensor, state: torch.Tensor, cap: int):
     """B range coders over contiguous step ranges; see

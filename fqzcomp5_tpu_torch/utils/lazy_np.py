@@ -18,12 +18,6 @@ class _LazyNumpy:
         object.__setattr__(self, "_mod", None)
 
     def _load(self):
-        import os
-
-        if os.environ.get("FQZ5_TRACE_NP"):
-            import traceback
-
-            traceback.print_stack()
         import numpy
 
         object.__setattr__(self, "_mod", numpy)

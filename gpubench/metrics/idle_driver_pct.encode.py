@@ -1,0 +1,12 @@
+"""Share of the encode calls' wall during which the card was idle while
+the program's host was under a driver/ span (the wave driver's segment
+stages, the learner, names, LZP3 and small sections on the host,
+framing, CRC and writes): the program's FQZ5_DEVTIME spans on the
+profiler's clock (gbench.program_spans), over device_idle_pct.encode's
+wall."""
+
+from gbench import program_spans
+
+
+def read(trace):
+    return program_spans.idle_pct(trace, "encode", "driver/")

@@ -25,7 +25,10 @@ ZERO = {"link_s": 0.0, "link_bytes": 0, "compute_s": 0.0,
 
 @pytest.fixture
 def timer(monkeypatch):
-    """devtimer with its counters reset before and after the test."""
+    """devtimer with its counters reset before and after the test, and
+    a span log of its own."""
+    monkeypatch.setattr(devtimer, "_log",
+                        type(devtimer._log)(maxlen=devtimer.MAX_SPANS))
     devtimer.reset()
     yield devtimer
     monkeypatch.setattr(devtimer, "enabled", False)
@@ -91,21 +94,30 @@ def test_counters_under_many_threads(timer, monkeypatch):
 def test_timed_counts_each_wrapper_call(timer, monkeypatch, on):
     """devtimer.timed: one compute call per call of the decorated
     wrapper when enabled, none when disabled; the result, keywords,
-    name and attributes pass through."""
+    name and attributes pass through.  Enabled, each call is also a
+    kernel/<walk> span."""
     monkeypatch.setattr(timer, "enabled", on)
+    n = len(timer.spans())
 
-    @timer.timed
+    @timer.timed("walk")
     def wrapper(t, k=1):
         """doc"""
         return t + k
     wrapper.launches = 0
     t = torch.arange(4)
-    assert wrapper(t, k=2).tolist() == [2, 3, 4, 5]
-    assert wrapper(t).tolist() == [1, 2, 3, 4]
+    with timer.span("encode"):
+        assert wrapper(t, k=2).tolist() == [2, 3, 4, 5]
+        assert wrapper(t).tolist() == [1, 2, 3, 4]
     assert timer.snapshot()["compute_calls"] == 2 * on
     assert timer.snapshot()["link_bytes"] == 0
     assert (wrapper.__name__, wrapper.__doc__) == ("wrapper", "doc")
     assert wrapper.launches == 0
+    new = timer.spans()[n:]
+    if not on:
+        assert new == []
+        return
+    assert [s.name for s in new] == ["kernel/walk", "kernel/walk", "encode"]
+    assert {s.parent for s in new[:2]} == {new[-1].id}
 
 
 def test_every_kernel_wrapper_is_timed():
@@ -144,16 +156,20 @@ def test_archives_identical_with_devtime_on(tmp_path, timer, monkeypatch,
     src = _fastq(tmp_path / "in.fastq", 300, seed=len(preset))
     arg, _, _ = cli.parse_args([preset, "-V"])
     arg.blk_size = 16_000
-    blobs, snaps = {}, {}
+    blobs, snaps, roots = {}, {}, {}
     for on in (False, True):
         monkeypatch.setattr(timer, "enabled", on)
         timer.reset()
+        n = len(timer.spans())
         out = io.BytesIO()
         cuda_driver.encode_file(str(src), out, arg, Timings(), CPU)
         blobs[on] = out.getvalue()
         snaps[on] = timer.snapshot()
+        roots[on] = [s.name for s in timer.spans()[n:] if s.parent is None]
     assert blobs[True] == blobs[False]
     assert snaps[False] == ZERO
+    # the spans: none with the switch off, one encode request with it on
+    assert roots == {False: [], True: ["encode"]}
     assert snaps[True]["link_bytes"] > 0 and snaps[True]["compute_calls"] > 0
     timer.reset()
     out = io.BytesIO()
