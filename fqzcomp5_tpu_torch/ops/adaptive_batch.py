@@ -6,8 +6,9 @@ blocks' SEQ and FQZ sections sharing one pass-2 batch per model family
 and one pass-3 range-coder walk.
 
 Jobs are namespaced into one event stream (job j, model id m -> key
-j * JOB_OFF + m) and grouped into four model families, each evolved
-across all jobs at once:
+j * JOB_OFF + m) and grouped into four model families, each grouped by
+context with a stable sort on the device and evolved across all jobs at
+once:
 
   T4    TinyModel<4>        seq codec k-mer models     model_cuda.tiny_evolve
   T2    TinyModel<2>        seq codec state models     model_cuda.tiny_evolve
@@ -125,17 +126,20 @@ def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
 
 def _evolve_families(jobvec, fam, mid, sym, metas, dev: DevTriples,
                      device: torch.device | Mesh) -> None:
-    """Pass 2 for the whole batch: group rows per family across jobs,
-    evolve each family's buckets on `device` (a device, or a Mesh over
-    which each bucket plane's rows split), scatter the triples to event
-    order in `dev`."""
+    """Pass 2 for the whole batch: group rows per family across jobs on
+    `device`'s first device, evolve each family's buckets on `device` (a
+    device, or a Mesh over which each bucket plane's rows split), scatter
+    the triples to event order in `dev`."""
     gmid = jobvec * JOB_OFF + mid
+    first = first_device(device)
     for F in (F_T4, F_T2, F_N128, F_W256):
         sel = np.flatnonzero(fam == F)
         if not len(sel):
             continue
         with devtimer.span("adaptive/group"):
-            g = fqz_model_torch.group_stream(gmid[sel], sym[sel])
+            g = fqz_model_torch.group_stream_torch(gmid[sel], sym[sel],
+                                                   first)
+        devtimer.count("group_events", len(sel))
         # a launch's steps: its rows' event counts, known on the host
         counts = g[1]
         kw = dict(collect=dev, posmap=sel)

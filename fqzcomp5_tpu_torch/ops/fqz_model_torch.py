@@ -16,10 +16,12 @@ of the walks: the references the CUDA kernels (``model_cuda``,
 take for tensors on the CPU.  They loop over occurrences with every
 context of the batch vectorised.  ``group_stream``, ``_concat_arange``
 and the bucketing in ``evolve_grouped`` are the JAX package's numpy
-code; ``evolve_grouped`` hands each bucket's plane to a device walk and
-keeps the results on that device when given a collector.  The JAX
-package's pow2 padding of plane rows is gone: it bounded XLA compiles,
-and torch compiles nothing per shape.
+code; ``group_stream_torch`` does ``group_stream``'s work with a stable
+device sort (the batch encode's route), and ``evolve_grouped`` hands
+each bucket's plane to a device walk and keeps the results on that
+device when given a collector.  The JAX package's pow2 padding of plane
+rows is gone: it bounded XLA compiles, and torch compiles nothing per
+shape.
 """
 
 from __future__ import annotations
@@ -279,6 +281,27 @@ def group_stream(ctx: np.ndarray, qm: np.ndarray):
                                      return_counts=True)
     return (uniq, counts.astype(np.int64), starts.astype(np.int64),
             order.astype(np.int64), np.ascontiguousarray(qm[order]))
+
+
+def group_stream_torch(ctx: np.ndarray, qm: np.ndarray,
+                       device: torch.device | str):
+    """group_stream on `device`: the same five numpy arrays, value for
+    value and dtype for dtype (keys below 2^63), from a stable device
+    sort.  Stability keeps each context's events in stream order, the
+    order its model updates in.
+
+    Keys, positions, counts and starts cross the link as int64 and the
+    symbols in their own dtype: narrowing them would save link bytes but
+    costs more host passes (the casts and their checks) than it saves."""
+    device = torch.device(device)
+    k, idx = torch.sort(devtimer.put(ctx.astype(np.int64, copy=False),
+                                     device), stable=True)
+    uniq, counts = torch.unique_consecutive(k, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    syms_sorted = devtimer.put(qm, device)[idx]
+    return (devtimer.get(uniq).astype(ctx.dtype, copy=False),
+            devtimer.get(counts), devtimer.get(starts), devtimer.get(idx),
+            devtimer.get(syms_sorted))
 
 
 def _concat_arange(seg: np.ndarray) -> np.ndarray:

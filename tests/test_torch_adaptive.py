@@ -133,6 +133,39 @@ def test_group_stream_and_triples_for_stream_match_jax():
         assert np.array_equal(a, np.asarray(b))
 
 
+def _group_case(kind, qdt, n=5000):
+    rng = np.random.default_rng(n + len(kind))
+    if kind == "random":
+        ctx = (rng.integers(0, 300, n) * 1000 + 5).astype(np.uint32)
+    elif kind == "hot":         # one context holds most events
+        ctx = rng.integers(0, 40, n)
+        ctx[rng.random(n) < 0.9] = 17
+    elif kind == "equal":
+        ctx = np.full(n, 123456)
+    elif kind == "single":
+        ctx = np.array([42])
+    elif kind == "empty":
+        ctx = np.zeros(0, np.int64)
+    else:                       # "jobs": job * 2^32 + model id
+        ctx = (rng.integers(0, 5, n) * adaptive_batch.JOB_OFF
+               + rng.integers(0, 4 ** 12, n))
+    return ctx, rng.integers(0, 256, len(ctx)).astype(qdt)
+
+
+@pytest.mark.parametrize("kind,qdt", [
+    (k, q) for k in ("random", "hot", "equal", "single", "empty", "jobs")
+    for q in (np.uint8, np.int32)])
+def test_group_stream_torch_matches_group_stream(kind, qdt):
+    """The device grouping gives group_stream's five arrays, value for
+    value and dtype for dtype."""
+    ctx, qm = _group_case(kind, qdt)
+    got = fqz_model_torch.group_stream_torch(ctx, qm, CPU)
+    want = fqz_model_torch.group_stream(ctx, qm)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert np.array_equal(a, b)
+
+
 # ---------------------------------------------------------------------
 # pass 3: the range coder
 
@@ -369,6 +402,25 @@ def test_batch_matches_jax_batch_and_host_codecs():
     got = adaptive_batch.encode_adaptive_batch(jobs, CPU)
     assert got == jax_batch.encode_adaptive_batch(jobs)
     assert got == [_host_encode(j) for j in jobs]
+
+
+def test_batch_groups_every_pass2_event(monkeypatch):
+    """Several jobs (keys past 2^32), seq update-only events among them:
+    the host codecs' payloads, and every pass-2 event grouped on the
+    device (group_events equals pass2_events)."""
+    from fqzcomp5_tpu_torch.ops import devtimer
+
+    monkeypatch.setattr(devtimer, "enabled", True)
+    monkeypatch.setattr(devtimer, "_log",
+                        type(devtimer._log)(maxlen=devtimer.MAX_SPANS))
+    jobs = [_fqz_case(31, with_seq=True, strat=3),
+            _seq_case(32, both=1, slevel=12), _seq_case(33)]
+    with devtimer.span("encode"):
+        got = adaptive_batch.encode_adaptive_batch(jobs, CPU)
+    devtimer.reset()
+    assert got == [_host_encode(j) for j in jobs]
+    counts = next(s for s in devtimer.spans() if s.name == "encode").counts
+    assert counts["group_events"] == counts["pass2_events"] > 0
 
 
 def test_batch_budget_split_and_empty_jobs(monkeypatch):

@@ -188,6 +188,7 @@ def test_round_trip_spans_and_walk_symbols(tmp_path, on, preset):
     if preset == "-5":
         assert c["adaptive_jobs_device"] > 0 and c["adaptive_jobs_host"] > 0
         assert c["pass2_events"] > 0 and c["rc_chunks"] > 0
+        assert c["group_events"] == c["pass2_events"]
     assert dec.counts["host_sections"] >= 4
     tallied = {}
     for walk, _, syms, _ in seen.seen:
