@@ -20,7 +20,8 @@ BINS = ((1, 0), (9, 6), (19, 15), (24, 22), (29, 27), (34, 33), (39, 37),
 
 
 def bin_quals(qual: np.ndarray) -> np.ndarray:
-    """Phred+33 qualities mapped to their bins' levels."""
+    """Phred+33 qualities mapped to their bins' levels (a plane of reads
+    of any lengths: each read keeps its length)."""
     q = qual.astype(np.int16) - 33
     out = np.empty_like(q)
     lo = -1
@@ -45,7 +46,7 @@ def install(run: window.Run) -> None:
     """Put the control in the program's place for the run's window (after
     its set-up)."""
     r = run.reads
-    binned = Reads(r.names, r.seq, bin_quals(r.qual))
+    binned = Reads(r.names, r.seq, bin_quals(r.qual), r.lens)
     path = run.path + ".binned"
     with open(path, "wb") as fp:
         fp.write(traffic.fastq(binned))

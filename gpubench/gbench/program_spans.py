@@ -10,17 +10,24 @@ start of its trace, so the two clocks differ by one offset.
 
 ``window(trace)`` finds it: the window's benchmark spans (``trace.spans``,
 in order) are matched one for one with a contiguous run of the log's
-roots (``encode``, ``decode``) of the same names, each root's duration
-within TOL_US of its benchmark span's, and the offsets (benchmark span
-end less root end) all within TOL_US of one another; of several such
-runs, the one whose offsets agree best.  Warm-up and tally roots lie
-outside the run.  The offsets come from the ends, and the first span
-may be up to FIRST_US longer than its root: the profiler stamps its
-first range's start milliseconds before the range returns to the
-caller (5 ms on a CPU build of torch), and that time is no program's.
-Where no run matches (a program that keeps no spans, a log that lost
-the window's first records), it returns None, and every reader returns
-None.
+roots (``encode``, ``decode``) of the same names.  The run's offset is
+the median of its offsets (benchmark span end less root end); every
+root, moved by it, lies inside its benchmark span, give or take TOL_US;
+and all but at most a quarter of the pairs are tight: end and start
+each within TOL_US of the offset.  A loose pair is a request in which
+the host stood still between the benchmark's range and the program's
+root (a stall of the machine, a page fault storm in the harness's copy
+of the archive): its benchmark span is longer than its root, and that
+time, no span's, goes to the root's own name.  Of several such runs,
+the one with the fewest loose pairs, then whose tight offsets agree
+best.  Warm-up and tally roots lie outside the run.  The first span may
+start up to FIRST_US before its root and still be tight: the profiler
+stamps its first range's start milliseconds before the range returns
+to the caller (5 ms on a CPU build of torch), and that time is no
+program's.  Where no run matches (a program that keeps no spans, a log
+that lost the window's first records, one that disagrees with the
+profile in more than a quarter of the requests), it returns None, and
+every reader returns None.
 
 ``Window.idle_us(merged, kind)``: each idle instant of a benchmark span
 of that kind (the stretches between ``trace.merged``'s device
@@ -154,26 +161,34 @@ def match(bench, log):
     roots = sorted((r for r in log if r.parent is None and r.name in ROOTS),
                    key=lambda r: r.t0_ns)
     n = len(bench)
-    best = None                   # (offsets' spread, first root, offsets)
+    best = None           # (loose pairs, tight offsets' spread, k, offset)
     for k in range(len(roots) - n + 1) if n else ():
-        offs = []
-        for j, ((name, a, b), r) in enumerate(zip(bench, roots[k:k + n])):
-            longer = (b - a) - (r.t1_ns - r.t0_ns) / 1e3
-            if (r.name != name or longer < -TOL_US
-                    or longer > (FIRST_US if j == 0 else TOL_US)):
-                break
-            offs.append(b - r.t1_ns / 1e3)
-        else:
-            spread = max(offs) - min(offs)
-            if spread <= TOL_US and (best is None or spread < best[0]):
-                best = (spread, k, offs)
+        run = roots[k:k + n]
+        if any(r.name != name for (name, _, _), r in zip(bench, run)):
+            continue
+        ends = [b - r.t1_ns / 1e3 for (_, _, b), r in zip(bench, run)]
+        off = sorted(ends)[n // 2]
+        tight, inside = [], True
+        for j, ((_, a, b), r) in enumerate(zip(bench, run)):
+            early = r.t0_ns / 1e3 + off - a    # bench start before root's
+            late = ends[j] - off               # bench end after root's
+            inside &= early >= -TOL_US and late >= -TOL_US
+            if abs(late) <= TOL_US and -TOL_US <= early <= (
+                    FIRST_US if j == 0 else TOL_US):
+                tight.append(ends[j])
+        loose = n - len(tight)
+        if not inside or 4 * loose > n:
+            continue
+        cand = (loose, max(tight) - min(tight), k, off)
+        if best is None or cand[:2] < best[:2]:
+            best = cand
     if best is None:
         return None
-    _, k, offs = best
+    _, _, k, off = best
     if not any(r.t1_ns < roots[k].t0_ns for r in log):
         return None               # the log no longer holds all of it
     pairs = [(name, a, b, r) for (name, a, b), r in zip(bench, roots[k:k + n])]
-    return Window(pairs, sorted(offs)[n // 2], log)
+    return Window(pairs, off, log)
 
 
 def window(trace) -> Window | None:

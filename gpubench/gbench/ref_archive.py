@@ -5,7 +5,8 @@ u64, the blocks, then the index (``FQZ5IDX\\0``, a u32 count, and per
 block its offset u64, bases u32 and records u32).  A block: its size
 u32 (of what follows), records u32, CRC32 u32 of the rest; names [ulen
 u32][strategy u8][clen u32][payload]; lengths [n u8][varint] for a fixed
-length, or [0][size u32][varints]; bases and qualities each [strategy
+length, or [0][size u32][varints], one a record, each held against its
+record's own length; bases and qualities each [strategy
 u8][ulen u32][clen u32][payload].  Qualities are stored as Phred values
 (ASCII - 33).  All integers are little-endian.
 
@@ -33,21 +34,28 @@ LZP3 = 10
 
 class Reads:
     """The reads a file holds: names (without '@'), bases and qualities
-    (ASCII) as (n, length) uint8 arrays."""
+    (ASCII) as (n, width) uint8 planes, and lens, each read's length (all
+    the width by default): read k is the first lens[k] bytes of its
+    rows."""
 
-    def __init__(self, names: list[bytes], seq: np.ndarray, qual: np.ndarray):
+    def __init__(self, names: list[bytes], seq: np.ndarray, qual: np.ndarray,
+                 lens: np.ndarray | None = None):
         self.names = names
         self.seq = seq
         self.qual = qual
+        self.lens = (np.full(len(names), seq.shape[1], np.int64)
+                     if lens is None else np.asarray(lens, np.int64))
 
     def __len__(self) -> int:
         return len(self.names)
 
     def sections(self, r0: int, n: int) -> dict:
-        """The sections of the block of records [r0, r0 + n)."""
+        """The sections of the block of records [r0, r0 + n), each read
+        cut to its length."""
+        keep = np.arange(self.seq.shape[1]) < self.lens[r0:r0 + n, None]
         return {"names": b"\0".join(self.names[r0:r0 + n]) + b"\0",
-                "seq": self.seq[r0:r0 + n].tobytes(),
-                "qual": (self.qual[r0:r0 + n] - 33).tobytes()}
+                "seq": self.seq[r0:r0 + n][keep].tobytes(),
+                "qual": (self.qual[r0:r0 + n][keep] - 33).tobytes()}
 
 
 class Report:
@@ -87,7 +95,7 @@ def _layout(raw: bytes) -> _Block:
     clen, off = _u32(raw, off + 1)
     b.name_pay = raw[off:off + clen]
     off += clen
-    lstrat = raw[off]
+    lstrat = b.len_strat = raw[off]
     off += 1
     if lstrat:
         L, off2 = ref_rans.get_uv(raw, off)
@@ -119,8 +127,12 @@ def _parse_block(raw: bytes, r0: int, reads: Reads) -> _Block:
     if r0 + b.nrec > len(reads):
         raise ref_rans.FormatError("more records than the input holds")
     b.expect = reads.sections(r0, b.nrec)
-    if (b.lens != reads.seq.shape[1]).any():
-        raise ref_rans.FormatError("read lengths differ")
+    want = reads.lens[r0:r0 + b.nrec]
+    bad = np.flatnonzero(b.lens != want)
+    if len(bad):
+        k = bad[0]
+        raise ref_rans.FormatError(f"read {r0 + k}'s length is {b.lens[k]}, "
+                                   f"not {want[k]}")
     return b
 
 

@@ -6,6 +6,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -30,6 +31,36 @@ def test_run_on_the_card(cell, trace):
     assert out["correct"], out["checks"]
     assert out["device"]["platform"] == "gpu"
     assert list(out)[-1] == "checks"
+
+
+@pytest.mark.card
+def test_ragged_round_trip_on_the_card(tmp_path):
+    # a 4 MB file of reads of 25-400 bases through the -e cuda -5 engine
+    # the cells time: decoded as it went in, every block reference-correct
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gbench import ref_archive, traffic, window
+    from helpers import ragged_config
+
+    r = traffic.reads(ragged_config(4_000_000), 2 ** 34 + 77)
+    data = traffic.fastq(r)
+    path = tmp_path / "ragged.fastq"
+    path.write_bytes(data)
+    port = window.Port("-5")
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        archive = port.encode(str(path))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    print(f"ragged -5 encode of {len(data)} bytes ({len(r)} reads), s:",
+          walls, "device:", torch.cuda.get_device_name(0))
+    assert bytes(port.decode(archive)) == data
+    rep = ref_archive.check(archive, r)
+    assert rep.bad_blocks == 0 and rep.first_error == ""
+    assert rep.records == len(r) and "FQZ" in rep.kinds
 
 
 def test_no_card_no_result():

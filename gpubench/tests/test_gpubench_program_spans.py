@@ -3,8 +3,8 @@
 log: the alignment picks the window's roots among warm-up and tally
 ones, idle time goes to the innermost span, the shares and the unnamed
 rest add up to device_idle_pct, a log that disagrees beyond 2 ms reads
-nothing, and candidate_bytes_per_byte counts only the window's
-encodes."""
+nothing, a stall of the host outside one root is matched, and
+candidate_bytes_per_byte counts only the window's encodes."""
 
 import collections
 
@@ -176,18 +176,51 @@ def test_shares_and_the_rest_add_up_to_device_idle(program, kind):
 def test_a_log_beyond_2_ms_reads_nothing(program, shift, stretch, late):
     """The window's second round trip lies 2.5 ms later in the log than
     in the profile (the offsets disagree), or its encode lasts 2.5 ms
-    longer, or 2.5 ms shorter."""
+    longer than its benchmark span, or its three requests each 2.5 ms
+    shorter (half of the window's: more than a quarter)."""
     log = Log()
     log.round_trip(-27_000, {})
     log.round_trip(WINDOW[0], {"candidate_bytes": 3000})
-    log.round_trip(WINDOW[1] + shift, {"candidate_bytes": 3000}, stretch,
-                   late)
+    start = WINDOW[1] + shift
+    log.request("encode", start, ENC_LEN, ENC, {"candidate_bytes": 3000},
+                stretch, late)
+    for d in range(2):
+        log.request("decode", start + ENC_LEN + GAP + d * (DEC_LEN + GAP),
+                    DEC_LEN, DEC, late=late)
     program(log.records)
     tr = Trace(WINDOW)
     assert program_spans.window(tr) is None
     for m in LAYERS + ("idle_host_decode_pct.decode",
                        "candidate_bytes_per_byte.encode"):
         assert read(m, tr) is None
+
+
+@pytest.mark.parametrize("side,at", [("start", 3), ("end", 5)])
+def test_a_stall_outside_one_root_is_matched(program, side, at):
+    """The host stands still for 2.5 ms inside one benchmark span but
+    outside its root: before the second encode's root opens, or after
+    the last decode's closes.  Matched as without it, with the same
+    offset, and the stall, device-idle and under no span, goes to the
+    root's own name."""
+    starts = [0.0, 25_000.0]       # 6 ms between the round trips
+    log = Log()
+    for s in [-27_000.0] + starts + [50_000.0]:
+        log.round_trip(s, {"candidate_bytes": 3000})
+    program(log.records)
+    plain = Trace(starts)
+    tr = Trace(starts)
+    name, a, b = tr.spans[at]
+    tr.spans[at] = ((name, a - 2500.0, b) if side == "start"
+                    else (name, a, b + 2500.0))
+    w0 = program_spans.window(plain)
+    w = program_spans.window(tr)
+    assert w is not None
+    assert [r.id for *_, r in w.pairs] == [r.id for *_, r in w0.pairs]
+    assert w.offset == w0.offset
+    _, idle0 = w0.idle_us(plain.merged, name)
+    _, idle = w.idle_us(tr.merged, name)
+    assert idle == pytest.approx(
+        {**idle0, name: idle0[name] + 2500.0}, abs=1e-6)
 
 
 def test_the_profiles_first_range_may_start_early(program):

@@ -138,3 +138,48 @@ def test_changed_payload_byte_fails_even_with_a_sound_crc(tmp_path):
         assert rep.bad_blocks > 0
     rep = ref_archive.check(a, _reads(n=500, seed=12))
     assert rep.bad_blocks > 0
+
+
+def _first_length(a):
+    """Offset in the archive of the last byte of the first block's first
+    length varint; the block's lengths must be stored one a record."""
+    off = 16 + 12                                  # names [ulen][strat]
+    clen = struct.unpack_from("<I", a, off + 5)[0]
+    off += 9 + clen
+    assert a[off] == 0                             # varints, no fixed length
+    off += 5
+    while a[off] & 0x80:
+        off += 1
+    return off
+
+
+@pytest.mark.parametrize("preset,blk,kinds", [("-1", 500_000, {"rANS"}),
+                                               ("-5", None, {"FQZ"})])
+def test_ragged_archives_host_engine(tmp_path, preset, blk, kinds):
+    # reads of 25-400 bases: every block holds its lengths as varints,
+    # and the reference holds them record by record
+    from helpers import ragged_config
+
+    r = traffic.reads(ragged_config(2_000_000), 2 ** 34 + 21)
+    a = _archive(tmp_path, preset, r, "host", blk)
+    rep = ref_archive.check(a, r)
+    assert rep.bad_blocks == 0 and rep.first_error == ""
+    assert rep.records == len(r) and rep.blocks >= (4 if blk else 1)
+    assert kinds <= rep.kinds and (preset != "-1" or rep.kinds == kinds)
+    off, r0 = 16, 0
+    while off < struct.unpack_from("<Q", a, 8)[0]:
+        size = struct.unpack_from("<I", a, off)[0]
+        b = ref_archive._layout(a[off:off + 4 + size])
+        assert b.len_strat == 0
+        assert (b.lens == r.lens[r0:r0 + b.nrec]).all()
+        off, r0 = off + 4 + size, r0 + b.nrec
+    # one length changed in the expected reads, then in the archive
+    lens = r.lens.copy()
+    lens[len(r) // 3] -= 1
+    rep = ref_archive.check(a, ref_archive.Reads(r.names, r.seq, r.qual,
+                                                 lens))
+    assert rep.bad_blocks > 0 and "length" in rep.first_error
+    bad = bytearray(a)
+    bad[_first_length(a)] ^= 1
+    rep = ref_archive.check(_refit_crc(bytes(bad), 16), r)
+    assert rep.bad_blocks > 0 and "length" in rep.first_error

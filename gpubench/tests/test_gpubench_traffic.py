@@ -7,6 +7,8 @@ import pytest
 
 from gbench import registry, traffic
 
+from helpers import ragged_config
+
 
 def _cfg(name):
     return registry.Cell(registry.load_benchmark(), name).config
@@ -91,3 +93,106 @@ def test_file_size_follows_the_configuration():
     data = traffic.fastq(traffic.reads(cfg, 5))
     assert data.count(b"\n") == 4 * n
     assert abs(len(data) - 300_000) < 0.02 * 300_000
+
+
+# sha256 of the FASTQ the generator drew for each cell's configuration
+# before it took reads of varying length: its first 20,000 reads, and the
+# -5 cell's whole file
+PINNED = [
+    ("err174310-l1.roundtrip", 7, 20000,
+     "9f22aa2ed4056996b62e32bec1ccfcc8c974e726459ac67aceda6dd76e228de8"),
+    ("err174310-l1.roundtrip", 2 ** 31 + 5, 20000,
+     "4d159a0bcd9a1d3626d67fedfec288e96055f69a80efde274680cc9a33f827e9"),
+    ("err174310-l1.roundtrip", 2 ** 40 + 17, 20000,
+     "50d1499350a4472eb103a683e94c62f3153f97dc49e52612c9e3f322a3281165"),
+    ("err174310-l5.roundtrip", 7, 20000,
+     "9f22aa2ed4056996b62e32bec1ccfcc8c974e726459ac67aceda6dd76e228de8"),
+    ("err174310-l5.roundtrip", 2 ** 31 + 5, 20000,
+     "4d159a0bcd9a1d3626d67fedfec288e96055f69a80efde274680cc9a33f827e9"),
+    ("err174310-l5.roundtrip", 2 ** 40 + 17, 20000,
+     "50d1499350a4472eb103a683e94c62f3153f97dc49e52612c9e3f322a3281165"),
+    ("err174310-l5.roundtrip", 7, None,
+     "4601839c89fed181f5fb149ada9c22c9db6790c9653e400740aafbc2dc8d9fad"),
+    ("err174310-l5.roundtrip", 2 ** 31 + 5, None,
+     "a3dd46f5a661a0753004687c827d8f54fe3514794dc5eee46f7caef69d0c4468"),
+    ("err174310-l5.roundtrip", 2 ** 40 + 17, None,
+     "a8ab36d08a47963b1f8532be9d978d808f0952a98d52ee08ca1ec7c29f22cf34"),
+]
+
+
+@pytest.mark.parametrize("name,seed,n,digest", PINNED)
+def test_fixed_length_files_keep_their_bytes(name, seed, n, digest):
+    import hashlib
+
+    data = traffic.fastq(traffic.reads(_cfg(name), seed, n=n))
+    assert hashlib.sha256(data).hexdigest() == digest
+
+
+@pytest.mark.parametrize("name,n", [("err174310-l1.roundtrip", 480947),
+                                    ("err174310-l5.roundtrip", 60522)])
+def test_fixed_length_files_keep_their_read_counts(name, n):
+    assert traffic.nreads(_cfg(name)) == n
+
+
+def test_ragged_lengths_follow_the_histogram():
+    cfg = ragged_config(20_000_000)
+    bins = cfg["read_length"]["histogram"]
+    lens = traffic.lengths(cfg, 20000)
+    assert len(lens) == 20000
+    assert all(any(lo <= v <= hi for lo, hi, _ in bins) for v in set(lens))
+    total = sum(w for _, _, w in bins)
+    for lo, hi, w in bins:
+        share = ((lens >= lo) & (lens <= hi)).mean()
+        assert abs(share - w / total) < 0.03, (lo, hi, share)
+    # a file's lengths are the first of a longer file's
+    assert (traffic.lengths(cfg, 700) == lens[:700]).all()
+
+
+def test_ragged_seeds_share_lengths_not_bases():
+    cfg = ragged_config()
+    a = traffic.reads(cfg, 2 ** 31 + 3, n=3000)
+    b = traffic.reads(cfg, 2 ** 40 + 3, n=3000)
+    assert (a.lens == b.lens).all()
+    assert len(set(a.lens.tolist())) > 100
+    assert a.seq.shape == (3000, a.lens.max())
+    keep = np.arange(a.seq.shape[1]) < a.lens[:, None]
+    assert (a.seq[keep] != b.seq[keep]).mean() > 0.5
+    assert set(np.unique(a.seq[keep]).tobytes()) <= set(b"ACGT")
+
+
+@pytest.mark.parametrize("fmt,pat", [
+    ("SRR1238539.{n} {n}/1", rb"SRR1238539\.(\d+) (\d+)/1"),
+    ("{run}:{y:05d}:{x:05d}", rb"ZG6MK:(\d{5}):(\d{5})")])
+def test_ragged_file_size_and_names(fmt, pat):
+    cfg = ragged_config(600_000)
+    cfg["names"].update(format=fmt, fixed={"run": "ZG6MK"},
+                        x_range=[0, 3999], y_range=[0, 99999])
+    r = traffic.reads(cfg, 2 ** 33 + 1)
+    data = traffic.fastq(r)
+    assert len(r) == traffic.nreads(cfg)
+    assert abs(len(data) - 600_000) < 0.02 * 600_000
+    lines = data.split(b"\n")
+    assert len(lines) == 4 * len(r) + 1
+    for k in range(len(r)):
+        name, seq, plus, qual = lines[4 * k:4 * k + 4]
+        m = re.fullmatch(rb"@" + pat, name)
+        assert m, name
+        if b"{n}" in fmt.encode():
+            assert int(m[1]) == int(m[2]) == k + 1
+        else:
+            assert 0 <= int(m[2]) <= 3999
+        assert len(seq) == len(qual) == r.lens[k] and plus == b"+"
+
+
+def test_ragged_quality_falls_along_each_read():
+    cfg = ragged_config()
+    r = traffic.reads(cfg, 2 ** 35 + 9, n=4000)
+    phred = r.qual.astype(int) - 33
+    first, last = [], []
+    for k, m in enumerate(r.lens.tolist()):
+        tenth = max(1, m // 10)
+        first.append(phred[k, :tenth].mean())
+        last.append(phred[k, m - tenth:m].mean())
+    first, last = np.array(first), np.array(last)
+    assert first.mean() > last.mean() + 8
+    assert (first > last).mean() > 0.95
