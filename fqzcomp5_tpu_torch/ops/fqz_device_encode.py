@@ -20,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from fqzcomp5_tpu_torch.ops import fqz_ctx_torch
+from fqzcomp5_tpu_torch.ops import devtimer, fqz_ctx_torch
 
 K_G_MULTI_PARAM = 1   # native/fqzqual.cpp:29
 K_G_HAVE_STAB = 2
@@ -84,11 +84,16 @@ def build_stream(qual: bytes, lens, sels, P: fqz_ctx_torch.FqzParams,
     ends = np.cumsum(lens.astype(np.int64))
     starts = ends - lens
 
-    # pass 1 on the device: per-byte contexts for every record
+    # pass 1 on the device: per-byte contexts for every record.  The
+    # pad is a symbol the block holds, so that a stored quality map
+    # (which maps only those) keeps the padded entries' lookups in
+    # range; what they compute is masked out.
     L = int(lens.max()) if nrec else 0
+    devtimer.count("pass1_cells", nrec * L)
+    devtimer.count("pass1_symbols", len(qa))
     lens_d = torch.from_numpy(lens.astype(np.int64)).to(device)
     quals2d, mask = _pad_rows(torch.from_numpy(qa.copy()).to(device),
-                              lens_d, L, 0)
+                              lens_d, L, int(qa[0]) if len(qa) else 0)
     seqkw = {}
     if seq is not None and P.bbits.any():
         codes = _BASE_LUT[np.frombuffer(seq, np.uint8)]
@@ -130,6 +135,7 @@ def build_stream(qual: bytes, lens, sels, P: fqz_ctx_torch.FqzParams,
     len_emit = ~fixed_len[pidx]
     if nrec:
         len_emit[0] = True  # st.first_len
+    devtimer.count("len_events", 4 * int(len_emit.sum()))
     dup_emit = do_dedup[pidx]
     qual_cnt = np.where(dup, 0, lens.astype(np.int64))
     per_rec = (sel_emit + 4 * len_emit + dup_emit).astype(np.int64) \

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fqzcomp5_tpu_torch.ops import devtimer
+
 SEED_FWD = 0x007616C7
 SEED_REV = 0x2C6B62FF
 
@@ -89,6 +91,8 @@ def build_events(seq_buf: bytes, lens, both_strands: int, ctx_size: int,
     # contexts hold); in-record cells in row-major order are the
     # stream order
     L = int(lens.max())
+    devtimer.count("pass1_cells", len(lens) * L)
+    devtimer.count("pass1_symbols", n)
     lens_d = torch.from_numpy(lens.astype(np.int64)).to(device)
     mask = torch.arange(L, device=device)[None, :] < lens_d[:, None]
     codes2d = torch.full((len(lens), L), 4, dtype=torch.int32, device=device)
