@@ -14,25 +14,30 @@ context's count).
 of the walks: the references the CUDA kernels (``model_cuda``,
 ``csrc/fqz_evolve.cu``) are held against, and the route the wrappers
 take for tensors on the CPU.  They loop over occurrences with every
-context of the batch vectorised.  ``group_stream``, ``_concat_arange``
-and the bucketing in ``evolve_grouped`` are the JAX package's numpy
-code; ``group_stream_torch`` does ``group_stream``'s work with a stable
-device sort (the batch encode's route), and ``evolve_grouped`` hands
-each bucket's plane to a device walk and keeps the results on that
-device when given a collector.  The JAX package's pow2 padding of plane
-rows is gone: it bounded XLA compiles, and torch compiles nothing per
-shape.
+context of the batch vectorised.  ``group_stream`` is the JAX package's
+numpy grouping, kept as the reference of ``group_stream_torch``, which
+does its work with a stable device sort.  From the sort to the triples
+the events stay on the device (``group_resident``, ``evolve_grouped``,
+``DevTriples``): the host buckets rows by their counts, one entry a
+context, and each bucket's plane is built, and its triples are
+scattered to event order, on the grouping's device.  The JAX package's
+pow2 padding of plane rows is gone: it bounded XLA compiles, and torch
+compiles nothing per shape.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from fqzcomp5_tpu_torch.mesh import Mesh, split_rows
+from fqzcomp5_tpu_torch.mesh import Mesh, first_device, split_rows
 from fqzcomp5_tpu_torch.ops import devtimer
 
 K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel normalisation bound
+NLEVELS = 15                  # pass 2's count buckets: 16 .. 2^32 (past
+                              # any int32 count; the bounds below fit it)
 TINY_MAX = 255                # TinyModel: halve at pre-bump tot >= 255
 
 
@@ -283,122 +288,177 @@ def group_stream(ctx: np.ndarray, qm: np.ndarray):
             order.astype(np.int64), np.ascontiguousarray(qm[order]))
 
 
-def group_stream_torch(ctx: np.ndarray, qm: np.ndarray,
-                       device: torch.device | str):
-    """group_stream on `device`: the same five numpy arrays, value for
-    value and dtype for dtype (keys below 2^63), from a stable device
-    sort.  Stability keeps each context's events in stream order, the
-    order its model updates in.
-
-    Keys, positions, counts and starts cross the link as int64 and the
-    symbols in their own dtype: narrowing them would save link bytes but
-    costs more host passes (the casts and their checks) than it saves."""
-    device = torch.device(device)
-    k, idx = torch.sort(devtimer.put(ctx.astype(np.int64, copy=False),
-                                     device), stable=True)
+def group_stream_torch(key: torch.Tensor, sym: torch.Tensor):
+    """group_stream on key's device, from a stable device sort: (uniq,
+    counts, starts, idx, sym[idx]) as tensors there, the values of
+    group_stream(key, sym)'s five arrays (counts, starts and idx int64,
+    the symbols in their own dtype).  Stability keeps each context's
+    events in stream order, the order its model updates in."""
+    k, idx = torch.sort(key, stable=True)
     uniq, counts = torch.unique_consecutive(k, return_counts=True)
     starts = torch.cumsum(counts, 0) - counts
-    syms_sorted = devtimer.put(qm, device)[idx]
-    return (devtimer.get(uniq).astype(ctx.dtype, copy=False),
-            devtimer.get(counts), devtimer.get(starts), devtimer.get(idx),
-            devtimer.get(syms_sorted))
+    return uniq, counts, starts, idx, sym[idx]
 
 
-def _concat_arange(seg: np.ndarray) -> np.ndarray:
-    """[0..seg[0]), [0..seg[1]), ... concatenated."""
-    total = int(seg.sum())
-    if total == 0:
-        return np.zeros(0, np.int64)
-    return (np.arange(total, dtype=np.int64)
-            - np.repeat(np.cumsum(seg) - seg, seg))
+class DevGrouping(NamedTuple):
+    """A stream grouped by context, on a device: counts (C,) int32, each
+    context's events; starts (C,), its first event in sorted order;
+    ssorted (n,) uint8, the symbols in sorted order; gpos (n,), each
+    sorted event's position in the stream.  Starts and positions are
+    int32 below 2^31 events and int64 above."""
+    counts: torch.Tensor
+    starts: torch.Tensor
+    ssorted: torch.Tensor
+    gpos: torch.Tensor
 
 
-def evolve_grouped(g, run, device: torch.device | Mesh, rows=None,
-                   collect=None, posmap=None):
-    """Pass 2 over a CSR-grouped stream, contexts bucketed by count.
+def group_resident(key: torch.Tensor, sym: torch.Tensor):
+    """Group a stream's (key, sym) tensors by key on their device.
+    Returns (uniq, DevGrouping), all on that device: uniq (C,) int64, the
+    contexts' keys in sorted order.  Raises ValueError when a symbol
+    exceeds a byte (the walks' planes are uint8)."""
+    if sym.dtype != torch.uint8 and bool((sym > 255).any()):
+        raise ValueError("model symbols exceed a byte")
+    idt = torch.int32 if len(key) < 1 << 31 else torch.int64
+    uniq, counts, starts, idx, ssorted = group_stream_torch(
+        key, sym.to(torch.uint8))
+    return uniq, DevGrouping(counts.to(torch.int32), starts.to(idt),
+                             ssorted, idx.to(idt))
 
-    Each power-of-4 count bucket (16, 64, 256, ...) becomes one (rows,
-    tb) uint8 symbol plane on `device` -- padded cells stay within about
-    4x the events whatever the skew (fqz_model_jax.evolve_grouped).
-    `device` may be a fqzcomp5_tpu_torch.mesh.Mesh: each plane's rows
-    then split over it, every range launched before any result is read.
 
-    g: group_stream result.  run(plane, counts, rows) -> (cf, tot) (C,
-    tb) int32 device tensors; `rows` are the bucket's row indices into
-    g's uniq, for per-row alphabets; make any other tensor run needs on
-    plane's device.  rows: optional subset of row
-    indices to evolve.  collect: optional collector; each bucket's
-    results go to collect.add(cf, tot, posn, cell) -- event positions
-    and flat plane cells -- and stay on the device.  posmap: optional
-    map from this stream's positions to the collector's.  Without a
-    collector, returns (cum, freq, tot) uint32 numpy arrays in stream
-    order."""
-    uniq, counts, starts, order, ssorted = g
-    if rows is None:
-        rows = np.arange(len(uniq), dtype=np.int64)
-    if collect is None:
-        n = len(order)
-        out = (np.zeros(n, np.uint32), np.zeros(n, np.uint32),
-               np.zeros(n, np.uint32))
-    cnt = counts[rows]
-    maxc = int(cnt.max()) if len(cnt) else 0
-    done = np.zeros(len(rows), bool)
-    tb = 16
-    while True:
-        tbe = min(tb, max(maxc, 1))
-        sel = np.flatnonzero(~done & (cnt <= tbe))
-        if len(sel):
-            r = rows[sel]
-            seg = cnt[sel]
-            src = np.repeat(starts[r], seg) + _concat_arange(seg)
-            cell = np.repeat(np.arange(len(sel), dtype=np.int64) * tbe,
-                             seg) + _concat_arange(seg)
-            vals = ssorted[src]
-            if vals.size and int(vals.max()) > 255:
-                raise ValueError("model symbols exceed a byte")
-            sp = np.zeros(len(sel) * tbe, np.uint8)
-            sp[cell] = vals
-            sp = sp.reshape(len(sel), tbe)
-            seg32 = seg.astype(np.int32)
-            posn = order[src]
-            if collect is not None and posmap is not None:
-                posn = posmap[posn]
-            # a range of rows owns a contiguous run of the events
-            ev_end = np.concatenate(([0], np.cumsum(seg)))
-            launched = [(run(devtimer.put(sp[lo:hi], dev),
-                             devtimer.put(seg32[lo:hi], dev),
-                             r[lo:hi]), lo, hi)
-                        for dev, lo, hi in split_rows(device, len(sel))]
-            for (cf, tt), lo, hi in launched:
-                e = slice(int(ev_end[lo]), int(ev_end[hi]))
-                c = cell[e] - lo * tbe
-                if collect is not None:
-                    collect.add(cf, tt, posn[e], c)
-                else:
-                    cfh = devtimer.get(cf.reshape(-1)).view(np.uint32)[c]
-                    out[0][posn[e]] = cfh >> 16
-                    out[1][posn[e]] = cfh & 0xFFFF
-                    out[2][posn[e]] = devtimer.get(tt.reshape(-1))[c]
-            done[sel] = True
-        if tbe >= maxc or done.all():
-            break
-        tb *= 4
-    return None if collect is not None else out
+class DevTriples:
+    """Pass-2 results on the device, in event order: cf[i] = cum << 16 |
+    freq and tot[i] of event i (int32)."""
+
+    def __init__(self, n_total: int, device: torch.device):
+        self.device = device
+        self.cf = torch.zeros(n_total, dtype=torch.int32, device=device)
+        self.tot = torch.zeros(n_total, dtype=torch.int32, device=device)
+
+    def add(self, cf: torch.Tensor, tot: torch.Tensor, posn: torch.Tensor,
+            cell: torch.Tensor) -> None:
+        """Scatter a plane's flat cells `cell` to event positions `posn`
+        (both tensors on this device).  The plane may lie on another
+        device (a mesh's range): its cells are gathered there and copied
+        here."""
+        c = cell.to(cf.device)
+        self.cf[posn] = cf.reshape(-1)[c].to(self.device)
+        self.tot[posn] = tot.reshape(-1)[c].to(self.device)
+
+
+def _buckets(g: DevGrouping, which: torch.Tensor, nruns: int):
+    """Every row's power-of-4 count bucket (16, 64, 256, ...; the
+    highest of a run cut to its longest row), worked out on g's device.
+    Returns (rows, plan): rows, the row indices bucket after bucket, runs
+    in order and each bucket's rows in ascending order; plan, [(run
+    index, first, number of rows, tb)] in that order."""
+    dev = g.counts.device
+    level = torch.zeros(len(g.counts), dtype=torch.int32, device=dev)
+    for k in range(NLEVELS - 1):
+        level += g.counts > (16 << 2 * k)
+    key = which.to(torch.int32) * NLEVELS + level
+    rows = torch.sort(key, stable=True).indices
+    nb = torch.bincount(key, minlength=nruns * NLEVELS)
+    top = torch.zeros(nruns, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, which.to(torch.int64), g.counts, "amax")
+    nb, top = devtimer.get(nb), devtimer.get(top)
+    plan, first = [], 0
+    for k in np.flatnonzero(nb):
+        tb = min(16 << 2 * int(k % NLEVELS), int(top[k // NLEVELS]))
+        plan.append((int(k // NLEVELS), first, int(nb[k]), tb))
+        first += int(nb[k])
+    return rows, plan
+
+
+def _bucket_plane(g: DevGrouping, r: torch.Tensor, seg: torch.Tensor,
+                  n_ev: int, tbe: int):
+    """One bucket's (len(r), tbe) uint8 symbol plane, zero past each
+    row's count, with its n_ev events' sorted positions and flat plane
+    cells (int64), row after row: gathered on g's device from the rows
+    `r` and their counts `seg` (int32 tensors there)."""
+    idt = g.gpos.dtype
+    row = torch.repeat_interleave(seg, output_size=n_ev)
+    row0 = torch.cumsum(seg, 0, dtype=idt) - seg    # each row's first
+    k = (torch.arange(n_ev, dtype=idt, device=seg.device)
+         - row0.index_select(0, row))
+    src = g.starts[r].index_select(0, row) + k
+    cell = row.to(torch.int64) * tbe + k
+    plane = torch.zeros(len(seg) * tbe, dtype=torch.uint8, device=seg.device)
+    plane[cell] = g.ssorted.index_select(0, src)
+    return plane.view(len(seg), tbe), src, cell
+
+
+def evolve_grouped(g: DevGrouping, runs, which: torch.Tensor,
+                   alphabet: torch.Tensor, device: torch.device | Mesh,
+                   out: DevTriples) -> None:
+    """Pass 2 over a stream grouped on the device, contexts bucketed by
+    count, the triples scattered to event order in `out`.
+
+    runs: run(plane, counts, alphabets, steps) -> (cf, tot) (C, tb)
+    int32 tensors on plane's device, evolving a bucket plane's rows:
+    their counts and alphabets (C,) int32, steps the plane's events.
+    which (C,): the index into runs of each of g's rows; alphabet (C,)
+    int32: its alphabet size; both on g's device.  Each power-of-4 count
+    bucket (16, 64, 256, ...) of a run is one uint8 plane built on g's
+    device -- padded cells stay within about 4x the events whatever the
+    skew (fqz_model_jax.evolve_grouped).  `device` may be a
+    fqzcomp5_tpu_torch.mesh.Mesh: each plane's rows then split over it,
+    every range launched before any result is read, and the results
+    come back to out's device.
+
+    The buckets are worked out on the device; the host reads back a few
+    numbers a bucket, and then queues each bucket's gathers, walk and
+    scatter without waiting on the device."""
+    if not len(g.counts):
+        return
+    rows, plan = _buckets(g, which, len(runs))
+    seg = g.counts[rows]
+    ms = alphabet[rows]
+    ranges = [(runs[k], first, n, tb, split_rows(device, n))
+              for k, first, n, tb in plan]
+    # the events before each range's first row and after its last
+    ends = sorted({first + x for _, first, _, _, split in ranges
+                   for _, lo, hi in split for x in (lo, hi)} - {0})
+    cum = torch.cumsum(seg, 0)[devtimer.put(np.array(ends) - 1, rows.device)]
+    before = {0: 0, **dict(zip(ends, devtimer.get(cum).tolist()))}
+    for run, first, n, tb, split in ranges:
+        e0 = before[first]
+        n_ev = before[first + n] - e0
+        devtimer.count("plane_events", n_ev)
+        plane, src, cell = _bucket_plane(g, rows[first:first + n],
+                                         seg[first:first + n], n_ev, tb)
+        launched = [run(plane[lo:hi].to(dev),
+                        seg[first + lo:first + hi].to(dev),
+                        ms[first + lo:first + hi].to(dev),
+                        before[first + hi] - before[first + lo])
+                    for dev, lo, hi in split]
+        for (cf, tt), (_, lo, hi) in zip(launched, split):
+            e = slice(before[first + lo] - e0, before[first + hi] - e0)
+            out.add(cf, tt, g.gpos.index_select(0, src[e]),
+                    cell[e] - lo * tb)
 
 
 def triples_for_stream(ctx: np.ndarray, qm: np.ndarray, max_sym: int,
                        step_inc: int = 16,
                        device: torch.device | str | Mesh = "cpu"):
     """Full pass 2 for one stream of a <= 128-symbol model family:
-    group, evolve on `device`, un-sort.  Returns (cum, freq, tot) uint32
-    arrays in stream order (fqz_model_jax.triples_for_stream)."""
+    group and evolve on `device`, un-sort.  Returns (cum, freq, tot)
+    uint32 arrays in stream order (fqz_model_jax.triples_for_stream)."""
     from fqzcomp5_tpu_torch.ops import model_cuda
 
     dev = device if isinstance(device, Mesh) else torch.device(device)
+    first = first_device(dev)
+    _, g = group_resident(
+        devtimer.put(np.asarray(ctx, np.int64), first),
+        devtimer.put(qm, first))
 
-    def run(sp, ct, r):
-        ms = torch.full((len(r),), max_sym, dtype=torch.int32,
-                        device=sp.device)
+    def run(sp, ct, ms, steps):
         return model_cuda.evolve_128(sp, ct, ms, step_inc)
 
-    return evolve_grouped(group_stream(ctx, qm), run, dev)
+    out = DevTriples(len(ctx), first)
+    C = len(g.counts)
+    evolve_grouped(g, [run], torch.zeros(C, dtype=torch.int32, device=first),
+                   torch.full((C,), max_sym, dtype=torch.int32, device=first),
+                   dev, out)
+    cf = devtimer.get(out.cf).view(np.uint32)
+    return cf >> 16, cf & 0xFFFF, devtimer.get(out.tot).view(np.uint32)

@@ -24,6 +24,8 @@ from fqzcomp5_tpu_torch.ops import fqz_device_encode as port_fqz
 from fqzcomp5_tpu_torch.ops import fqz_model_torch, model_cuda, rc_cuda
 from fqzcomp5_tpu_torch.ops import rc_torch
 from fqzcomp5_tpu_torch.ops import seq_device_encode as port_seq
+from fqzcomp5_tpu_torch.mesh import Mesh
+from tests import pass2_ref
 
 CPU = torch.device("cpu")
 
@@ -126,7 +128,7 @@ def test_group_stream_and_triples_for_stream_match_jax():
                     fqz_model_jax.group_stream(ctx, qm)):
         assert np.array_equal(a, b)
     seg = np.array([3, 0, 5, 1], np.int64)
-    assert np.array_equal(fqz_model_torch._concat_arange(seg),
+    assert np.array_equal(pass2_ref.concat_arange(seg),
                           fqz_model_jax._concat_arange(seg))
     for a, b in zip(fqz_model_torch.triples_for_stream(ctx, qm, max_sym),
                     fqz_model_jax.triples_for_stream(ctx, qm, max_sym)):
@@ -157,13 +159,83 @@ def _group_case(kind, qdt, n=5000):
     for q in (np.uint8, np.int32)])
 def test_group_stream_torch_matches_group_stream(kind, qdt):
     """The device grouping gives group_stream's five arrays, value for
-    value and dtype for dtype."""
+    value, and dtype for dtype past the keys."""
     ctx, qm = _group_case(kind, qdt)
-    got = fqz_model_torch.group_stream_torch(ctx, qm, CPU)
+    got = fqz_model_torch.group_stream_torch(_t(ctx.astype(np.int64)),
+                                             _t(qm))
     want = fqz_model_torch.group_stream(ctx, qm)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype
-        assert np.array_equal(a, b)
+    assert np.array_equal(got[0].numpy(), want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.numpy().dtype == b.dtype
+        assert np.array_equal(a.numpy(), b)
+
+
+def _pass2_preps(kind):
+    """_prep_job-like tuples of a batch whose events are _group_case's:
+    jobs by key // JOB_OFF (each job's events in stream order), spread
+    over the four families, TinyModel symbols below their alphabet.
+    "wide": "random" with a quarter of the events moved to the selector
+    model of N128, whose 200-symbol alphabet takes the 256-slot walk."""
+    ctx, qm = _group_case("random" if kind == "wide" else kind, np.int32)
+    rng = np.random.default_rng(len(ctx) + 7)
+    fam = rng.integers(0, 4, len(ctx)).astype(np.int8)
+    sym = np.where(fam == adaptive_batch.F_T4, qm % 4,
+                   np.where(fam == adaptive_batch.F_T2, qm % 2, qm))
+    mid = ctx.astype(np.int64) % adaptive_batch.JOB_OFF
+    meta = (41, 3)
+    if kind == "wide":
+        sel = rng.random(len(ctx)) < 0.25
+        fam[sel] = adaptive_batch.F_N128
+        mid[sel] = port_fqz.MID_SEL
+        sym[sel] = rng.integers(0, 200, int(sel.sum()))
+        meta = (41, 200)
+    job = ctx.astype(np.int64) // adaptive_batch.JOB_OFF
+    return [(b"", fam[job == j], mid[job == j], sym[job == j].astype(np.int32),
+             None, meta if j % 2 == 0 else None)
+            for j in range(int(job.max(initial=0)) + 1)]
+
+
+@pytest.mark.parametrize("kind", ["random", "hot", "equal", "single",
+                                  "empty", "jobs", "wide"])
+def test_device_pass2_matches_numpy_path(kind, monkeypatch):
+    """Pass 2 kept on the device from the sort to DevTriples (buckets
+    worked out, planes built and triples scattered there) launches the
+    numpy path's walks on the same planes, in the same order, and gives
+    its cf/tot in event order, on one device and over a 3x1 mesh; the
+    numpy path groups each family on the host, builds the planes there
+    and un-sorts on the host.  "wide" runs N128 rows on both walks."""
+    preps = _pass2_preps(kind)
+    launches = []
+
+    def spy(name):
+        walk = getattr(model_cuda, name)
+
+        def run(sp, ct, arg, *a):
+            launches.append((name, tuple(sp.shape), sp.numpy().tobytes(),
+                             arg if name == "tiny_evolve" else arg.tolist()))
+            return walk(sp, ct, arg, *a)
+        monkeypatch.setattr(model_cuda, name, run)
+    for name in ("tiny_evolve", "evolve_128", "evolve_256"):
+        spy(name)
+    want = pass2_ref.pass2_np(preps, CPU)
+    numpy_launches, launches[:] = launches[:], []
+    for device in (CPU, Mesh([CPU] * 3, 3, 1)):
+        dev = adaptive_batch.DevTriples(len(want[0]), CPU)
+        adaptive_batch._evolve_families(preps, dev, device)
+        assert np.array_equal(dev.cf.numpy(), want[0])
+        assert np.array_equal(dev.tot.numpy(), want[1])
+        if device is CPU:
+            assert launches == numpy_launches
+    assert any(200 in a for n, _, _, a in numpy_launches
+               if n == "evolve_256") == (kind == "wide")
+
+
+def test_device_pass2_refuses_symbols_past_a_byte():
+    preps = _pass2_preps("random")
+    preps[0][3][5] = 256
+    with pytest.raises(ValueError, match="exceed a byte"):
+        adaptive_batch._evolve_families(
+            preps, adaptive_batch.DevTriples(5000, CPU), CPU)
 
 
 # ---------------------------------------------------------------------
@@ -407,7 +479,8 @@ def test_batch_matches_jax_batch_and_host_codecs():
 def test_batch_groups_every_pass2_event(monkeypatch):
     """Several jobs (keys past 2^32), seq update-only events among them:
     the host codecs' payloads, and every pass-2 event grouped on the
-    device (group_events equals pass2_events)."""
+    device and put in a plane there (plane_events and group_events equal
+    pass2_events)."""
     from fqzcomp5_tpu_torch.ops import devtimer
 
     monkeypatch.setattr(devtimer, "enabled", True)
@@ -420,7 +493,8 @@ def test_batch_groups_every_pass2_event(monkeypatch):
     devtimer.reset()
     assert got == [_host_encode(j) for j in jobs]
     counts = next(s for s in devtimer.spans() if s.name == "encode").counts
-    assert counts["group_events"] == counts["pass2_events"] > 0
+    assert (counts["plane_events"] == counts["group_events"]
+            == counts["pass2_events"] > 0)
 
 
 def test_batch_budget_split_and_empty_jobs(monkeypatch):
