@@ -13,23 +13,25 @@ Phases, each printed with its time; any failure exits non-zero:
   3. kernels -- runs each of the nine kernels and its plain PyTorch
      version on the same inputs and requires bit-identical results (the
      tolerance is zero: this is integer entropy coding); times both on
-     the card with CUDA events.  rANS: 64 streams, 4096 steps, order-0
-     and order-1 at shift 10 and 12, ragged lengths, a single-symbol
-     stream; the boundary-table walks at S = 16 and 48 (packed) and 256
-     (counter) and dense order-1 tables of 6 and 47 symbols at
-     shift 10 and 12, with single-symbol streams and contexts; then the
-     five JAX-signature functions of ops/rans_bnd_dec.py on the card
-     against the CPU on one small input.  The order-1 decode walk's
-     route edges: alphabets just under and just over the shared-memory
-     fit of its compact tables at shift 10 and 12 and a full byte
-     alphabet, each also with word rows cut short.  The dense order-1
-     walk on tests/test_torch_dense_walk.py's cases (DENSE_CASES: shift
-     10 and 12, A = 6 to 140 with byte 0 a symbol or not, the
-     shared-memory fit at each shift, packed and counter tables,
+     the card with CUDA events, beside the launch's bound.  rANS: 64
+     streams, 4096 steps, order-0 and order-1 at shift 10 and 12, ragged
+     lengths, a single-symbol stream; the boundary-table walks at S = 16
+     and 48 (packed) and 256 (counter) and dense order-1 tables of 6 and
+     47 symbols at shift 10 and 12, with single-symbol streams and
+     contexts; then the five JAX-signature functions of
+     ops/rans_bnd_dec.py on the card against the CPU on one small input.
+     The order-1 decode walk's route edges: alphabets just under and
+     just over the shared-memory fit of its compact tables at shift 10
+     and 12 and a full byte alphabet, each also with word rows cut
+     short.  The dense order-1
+     walk on tests/test_torch_dense_walk.py's cases (built by
+     tests/torch_cases.py, as are all the cases the CPU tests share;
+     DENSE_CASES: shift 10 and 12, A = 6 to 140 with byte 0 a symbol or
+     not, the shared-memory fit at each shift, packed and counter tables,
      single-symbol contexts; each round-tripped, with ragged lengths and
      one 0, with word rows cut short and with the boundaries of half its
-     rows out of order; and tables built from s3 LUTs
-     as the engine builds them); the order-0 walk on four streams with
+     rows out of order; and tables built from s3 LUTs as the engine
+     builds them); the order-0 walk on four streams with
      ragged lengths and rows cut short, and at B = 200.  The order-0
      boundary walk on tests/test_torch_bnd_o0_walk.py's cases
      (BND_O0_CASES: packed S = 16 and 64, counter S = 16 and 256, shift
@@ -70,10 +72,7 @@ Phases, each printed with its time; any failure exits non-zero:
      launched in it (the encode walk at every preset, the four adaptive
      kernels at -5, each rANS decoder the decode path handed a batch,
      the boundary order-0 walk at -1 and the dense order-1 walk at -3).
-     Prints the shapes of each path's order-1 decode and model-evolution
-     launches (streams, steps, shift, alphabets; contexts, steps, the
-     largest count).
-     Reports the -5 peak device memory, and encodes a 4 MB prefix at -1
+     Reports each path's peak device memory, and encodes a 4 MB prefix at -1
      and a 1 MB prefix at -5 both on the card and on the CPU (plain
      versions; in subprocesses started before phase 3, which run beside
      the card's phases), requiring equal archives.
@@ -135,22 +134,14 @@ Phases, each printed with its time; any failure exits non-zero:
      table forms in a subprocess of its own: each must exit 0, or 1 with
      ERROR: and no traceback, within its time limit.
 The last two lines are a JSON object of per-kernel results and
-{"ok": true, "device": {...}}.  Each kernel's bound_ms is the larger of
-the bytes its measured call moves (inputs read once, outputs written
-once) over 3.35 TB/s and its integer operations over 16.7 T int32
-operations/s (132 SMs x 64 int32 lanes x 1.98 GHz, H100 SXM at 700 W);
-library_ms is null, as no PyTorch call computes an entropy coder's walk.
-
-    python3 chip_smoke.py --profile [--decode [--boundary]] [--level=-5[,-3...]]
-                          [--out DIR] [--root DIR]
-
-builds the kernels, makes the same corpus and encodes it once at each
-given preset under cProfile and torch.profiler (with --decode: encodes
-it, then profiles the decode of the archive, through the boundary-table
-walks with --boundary): writes the two tables to DIR/<preset> (or
-DIR/<preset>-boundary; default build/profile/) and prints the device's busy time
-and idle share, the kernels' device times, the host functions that take
-the most time and the order-1 decode and model-evolution launch shapes.
+{"ok": true, "device": {...}}.  A launch's bound is the benchmark's
+(gpubench/gbench/roofline.py): the larger of its bytes, counted from the
+algorithm (each symbol once, plus the compressed bytes or model steps
+written or read), over the card's memory rate and its integer operations
+over its int32 rate; a kernel's bound_ms is the mean over its timed
+cases.  library_ms is null, as no PyTorch call computes an entropy
+coder's walk.  The port's speed is gpubench/run.py's to measure
+(--trace 1 for where the time goes), not this script's.
 
     python3 chip_smoke.py --only PHASE[,PHASE...]    (--scale: --only scale)
 
@@ -179,10 +170,10 @@ only times the redesigned walks alone at the main path's shapes (the
 range coder, the rANS encode walk, the order-1 decode walks over s3 and
 over dense tables, the order-0 decode walks over s3 and over boundary
 tables, evolve_128, the TinyModel walk, evolve_256), with cycles a step
-and their bounds.
---root DIR (default: this checkout) times or profiles the
-fqzcomp5_tpu_torch of the checkout at DIR, e.g. an unpacked parent
-commit, so that two versions are compared on one card in one call.
+and their bounds; with --decode only the decode walks.
+--root DIR (default: this checkout) times the fqzcomp5_tpu_torch of the
+checkout at DIR, e.g. an unpacked parent commit, so that two versions
+are compared on one card in one call.
 """
 
 from __future__ import annotations
@@ -198,8 +189,13 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(ROOT, "gpubench"))
+
+from gbench import roofline  # noqa: E402
+from tests import torch_cases  # noqa: E402
+
 CORPUS_MB = 256
-SEED = 42
+SEED = torch_cases.SEED
 B_STREAMS = 64
 T_STEPS = 4096
 # (preset, kernels its encode always launches)
@@ -247,8 +243,6 @@ CORRUPT_TIMEOUT_S = 300
 # flush records the range-coder kernel's shared-memory ring holds
 # (csrc/rc_encode.cu: kStages x kRecords)
 RC_RING_RECORDS = 4 * 256
-HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
-INT32_OPS_S = 16.7e12     # 132 SMs x 64 int32 lanes x 1.98 GHz
 CLOCK_HZ = 1.98e9         # H100 SXM boost clock, for cycles a step
 SMS = 132                 # H100 SXM streaming multiprocessors
 # max_abs_err of the kernels' edge cases (check()), by kernel
@@ -256,25 +250,26 @@ EDGE_ERRS: dict = {}
 # (B streams, T steps a lane, shift, symbols, quality-like random walk or
 # uniform symbols) of the order-1 decode walks (decode_o1, and
 # decode_dense_o1 on the same streams) timed by --walk-times: the -3 and
-# -1 decode launches' shapes (their quality streams: 40 symbols, and byte
-# 0, 41 codes in decode_o1's tables), and -1's with 100 uniform symbols
+# -1 decode launches' shapes on the corpus (PERF.md's kernel table, rows 3
+# and 7; their quality streams: 40 symbols, and byte 0, 41 codes in
+# decode_o1's tables), and -1's with 100 uniform symbols
 # (the dense tables' counter form; the most words a step from the ring)
 WALK_DECODE_O1 = ((6, 1_494_492, 10, 40, True), (16, 149_925, 10, 40, True),
                   (9, 149_925, 10, 40, True), (16, 149_925, 10, 100, False))
 # (B streams, T steps a lane, alphabet) of the order-0 decode walks timed
-# by --walk-times: the -1 decode launches' shapes (their reads' bases), and
-# -1's with uniform bytes (8 bits a symbol: half the lanes renormalise
-# each step)
+# by --walk-times: the -1 decode launches' shapes (rows 2 and 6; their
+# reads' bases), and -1's with uniform bytes (8 bits a symbol: half the
+# lanes renormalise each step)
 WALK_DECODE_O0 = ((16, 149_925, b"ACGT"), (9, 149_925, b"ACGT"),
                   (16, 149_925, bytes(range(256))))
 # (C contexts, T steps, max_sym) of evolve_128 timed by --walk-times: -5
-# count buckets (short, the largest, and one of long contexts) and one
-# long context
+# count buckets (row 9: short, the largest, and one of long contexts) and
+# one long context
 WALK_EVOLVE_128 = ((40385, 1024, 96), (41535, 4096, 96), (36, 469_362, 96),
                    (1, 100_000, 96))
 # (C contexts, T steps, nsym) of the TinyModel walk timed by --walk-times:
-# the nine launches of -5's largest batch of seq jobs (logged by
-# LaunchShapes): the read-start k-mer contexts (one context a job with an
+# the nine launches of -5's largest batch of seq jobs (PERF.md's kernel
+# table, row 11): the read-start k-mer contexts (one context a job with an
 # occurrence a read, 4 with a quarter as many, ...) and the bulk of the
 # contexts at T = 16 to 256
 WALK_TINY = ((2, 318_825, 4), (16, 262_144, 4), (64, 65_536, 4),
@@ -284,12 +279,6 @@ WALK_TINY = ((2, 318_825, 4), (16, 262_144, 4), (64, 65_536, 4),
 # rows (symbol 255 in runs; its longest launch) and a row of uniform
 # symbols
 WALK_EVOLVE_256 = (("run-length", 2, 187_545), ("uniform", 1, 100_000))
-# integer operations per walked step, counted from each walk's arithmetic
-# (a lower count: index math and loop control are left out), the work of
-# the function whatever implements it
-OPS_PER_STEP = {"encode_walk": 8, "decode_o0": 7, "decode_o1": 7,
-                "decode_bnd_o0": 7, "decode_dense_o1": 8, "evolve_128": 10,
-                "evolve_256": 10, "tiny_evolve": 6, "rc_encode_walk": 12}
 
 
 def log(msg: str) -> None:
@@ -324,346 +313,6 @@ def _streams(rng, np):
             d = rng.integers(0, 256, n).astype(np.uint8)
         out.append(d.astype(np.uint8))
     return out
-
-
-def _normalise(counts, shift, np):
-    """Rows of counts -> rows summing to 1<<shift, every counted symbol
-    at least 1 (rows of zeros stay zero)."""
-    tot = 1 << shift
-    c = counts.astype(np.int64)
-    rs = c.sum(-1, keepdims=True)
-    k = (c > 0).sum(-1, keepdims=True)
-    f = np.where(c > 0, 1 + (c * (tot - k)) // np.maximum(rs, 1), 0)
-    fix = np.where(rs[..., 0] > 0, tot - f.sum(-1), 0)
-    am = f.argmax(-1)
-    np.put_along_axis(f, am[..., None],
-                      np.take_along_axis(f, am[..., None], -1)
-                      + fix[..., None], -1)
-    return f
-
-
-# the dense order-1 walk's edge cases (shift, A, byte 0 a symbol, where
-# csrc/rans_decode_bnd.cu keeps the compact tables): A = 6 and 40 (-3's
-# qualities), the shared-memory fit at shift 12 (A = 50 | 51) and at
-# shift 10 (139 | 140), the packed form's last A = 64, the counter form
-EDGE_T = 40
-DENSE_CASES = ((10, 6, False, "shared"), (12, 6, True, "shared"),
-               (10, 40, False, "shared"), (12, 40, True, "shared"),
-               (12, 50, False, "shared"), (12, 51, True, "global"),
-               (10, 64, True, "shared"), (12, 64, False, "global"),
-               (10, 100, False, "shared"), (10, 139, True, "shared"),
-               (10, 140, False, "global"))
-
-
-def _compact_rows(w, nw, np):
-    """An encode walk's (words, nwords) on the CPU -> the (B, W) int16
-    word rows a decode walk reads."""
-    w, nw = w.numpy(), nw.numpy()
-    words = np.zeros((len(nw), max(1, int(nw.max()))), np.int16)
-    for b, n in enumerate(nw):
-        words[b, :n] = w[b, w.shape[1] - n:]
-    return words
-
-
-def dense_case(np, rng, A: int, shift: int, zero: bool, B: int = 3,
-               T: int = EDGE_T, single: bool = True):
-    """B order-1 streams of T steps a lane over A bytes (byte 0 among them
-    when zero), every byte used, encoded by the plain walk on the CPU;
-    with single, the second byte is always followed by the third (a
-    single-symbol context, f = tot).  Returns (words (B, W) int16, R0
-    (B, 32) int32, tab, A1, last0, dense symbols (B, T, 32) uint8,
-    freqs (B, 256, 256)), tab from build_o1_dense_tables of freqs."""
-    import torch
-    from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_torch
-
-    pool = np.arange(1, 256)
-    alpha = np.sort(rng.choice(pool, A - zero, replace=False))
-    if zero:
-        alpha = np.concatenate([[0], alpha])
-    sym = rng.integers(0, A, (B, T, 32))
-    k = A // 32 + 2
-    sym[:, 1:1 + k] = (np.arange(32 * k) % A).reshape(k, 32)
-    if single and A > 2:
-        for t in range(1, T):
-            sym[:, t] = np.where(sym[:, t - 1] == 1, 2, sym[:, t])
-    byte = alpha[sym]
-    flat = byte.copy()
-    flat[:, 1:] += byte[:, :-1] * 256
-    counts = np.stack([np.bincount(f.reshape(-1), minlength=65536)
-                       for f in flat])
-    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
-    Rf, w, nw = rans_torch.encode_walk_ref(
-        torch.from_numpy(flat.astype(np.int32)),
-        rans_torch.tables_from_numpy(freqs, "freqs", shift=shift), shift)
-    tab, got, A2, A1, last0 = rans_bnd_torch.build_o1_dense_tables(freqs,
-                                                                   shift)
-    if A2 != A or not np.array_equal(got, alpha) or A1 != A + (not zero):
-        raise AssertionError(f"dense case A={A}: the tables' alphabet is "
-                             f"{A2} symbols, {A1} contexts")
-    return (_compact_rows(w, nw, np), Rf.numpy(), tab, A1, last0,
-            sym.astype(np.uint8), freqs)
-
-
-def scramble_boundaries(np, rng, tab, A: int, A1: int):
-    """Dense tables tab (B, A1 * (A+1)) with the boundary fields of the
-    entries 1..A shuffled in about half of each stream's rows (tags, F
-    fields and bases kept): rows whose boundaries do not rise."""
-    bmask = np.uint32(0x1FFF if A <= 64 else 0x3FFF)
-    E = np.asarray(tab).view(np.uint32).reshape(len(tab), A1, A + 1).copy()
-    for row in E.reshape(-1, A + 1):
-        if rng.random() < 0.5:
-            row[1:] = (row[1:] & ~bmask) | rng.permutation(row[1:] & bmask)
-    return E.reshape(len(tab), -1).view(np.int32)
-
-
-def o0_case(np, rng, T: int = EDGE_T):
-    """Four order-0 streams of T steps a lane, encoded by the plain walk:
-    qualities, a single symbol (f = 4096 wraps to 0 in s3), DNA and
-    uniform bytes.  Returns (words, R0, s3 (B, 4096) int32, plane (B, T,
-    32) uint8)."""
-    import torch
-    from fqzcomp5_tpu_torch.ops import rans_torch
-
-    plane = np.stack([rng.integers(30, 70, (T, 32)), np.full((T, 32), 65),
-                      rng.choice([65, 67, 71, 84], (T, 32)),
-                      rng.integers(0, 256, (T, 32))]).astype(np.uint8)
-    freqs = _normalise(np.stack([np.bincount(p.reshape(-1), minlength=256)
-                                 for p in plane]), 12, np)
-    Rf, w, nw = rans_torch.encode_walk_ref(
-        torch.from_numpy(plane), rans_torch.tables_from_numpy(
-            freqs, "freqs", shift=12), 12,
-        nsym=torch.full((len(plane),), T * 32, dtype=torch.int32))
-    s3 = rans_torch.build_s3(freqs, 12).view(np.int32)
-    return _compact_rows(w, nw, np), Rf.numpy(), s3, plane
-
-
-# the order-0 boundary walk's edge cases (shift, S, packed): the packed
-# buckets 16 and 64 at both shifts, the counter form at S = 16 (the v2
-# walk's tables) and at S = 256 (-1's) at both shifts
-BND_O0_CASES = ((10, 16, True), (12, 16, True), (10, 64, True),
-                (12, 64, True), (12, 16, False), (10, 256, False),
-                (12, 256, False))
-# the tables each case is also walked with (bnd_o0_variants), none of
-# them a round trip
-BND_O0_VARIANTS = ("rows below tot", "boundaries out of order",
-                   "F inconsistent", "random entries", "f0 = 0",
-                   "f0 = tot")
-
-
-def bnd_o0_case(np, rng, S: int, shift: int, packed: bool, B: int = 4,
-                T: int = EDGE_T):
-    """B order-0 streams of T steps a lane over symbols below S, encoded
-    by the plain walk at `shift`: random-walk qualities, a single symbol
-    0 (f0 = tot), uniform symbols 1..S-1 (f0 = 0) and uniform 0..S-1.
-    Returns (words, R0, tab (B, S) int32 of build_dec_tables_p (packed)
-    or build_dec_tables, f0 (B,) int32, plane (B, T, 32) uint8, freqs
-    (B, 256))."""
-    import torch
-    from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_torch
-
-    kinds = [(np.cumsum(rng.integers(-2, 3, (T, 32)), 0) % (S - 1)) + 1,
-             np.zeros((T, 32)), rng.integers(1, S, (T, 32)),
-             rng.integers(0, S, (T, 32))]
-    plane = np.stack([kinds[b % 4] for b in range(B)]).astype(np.uint8)
-    freqs = _normalise(np.stack([np.bincount(p.reshape(-1), minlength=256)
-                                 for p in plane]), shift, np)
-    Rf, w, nw = rans_torch.encode_walk_ref(
-        torch.from_numpy(plane), rans_torch.tables_from_numpy(
-            freqs, "freqs", shift=shift), shift,
-        nsym=torch.full((B,), T * 32, dtype=torch.int32))
-    build = (rans_bnd_torch.build_dec_tables_p if packed
-             else rans_bnd_torch.build_dec_tables)
-    return (_compact_rows(w, nw, np), Rf.numpy(), build(freqs, shift, S),
-            freqs[:, 0].astype(np.int32), plane, freqs)
-
-
-def bnd_o0_variants(np, rng, freqs, tab, S: int, shift: int, packed: bool):
-    """Tables of bnd_o0_case's streams that no encoder makes, (label, tab,
-    f0) for each of BND_O0_VARIANTS: rows summing to about half of tot
-    (every boundary at most m in the upper half of the slots); the
-    boundary fields shuffled within each row; random F fields (in the
-    counter form 18 bits with the sign bit, so the int32 shift gives F
-    past 2^31); random entries and f0 (boundaries past tot, C past m by up
-    to 14 bits); and f0 = 0 and f0 = tot on the true tables."""
-    from fqzcomp5_tpu_torch.ops import rans_bnd_torch
-
-    tot = 1 << shift
-    build = (rans_bnd_torch.build_dec_tables_p if packed
-             else rans_bnd_torch.build_dec_tables)
-    bmask = np.uint32(0x1FFF if packed else 0x3FFF)
-    fshift = 13 if packed else 14
-    E = np.asarray(tab).view(np.uint32)
-    f0 = freqs[:, 0].astype(np.int32)
-    half = freqs // 2
-    out = [("rows below tot", build(half, shift, S),
-            half[:, 0].astype(np.int32))]
-    mixed = E.copy()
-    for row in mixed:
-        row[:] = (row & ~bmask) | rng.permutation(row & bmask)
-    out.append(("boundaries out of order", mixed.view(np.int32), f0))
-    fmask = np.uint32(((1 << (13 if packed else 18)) - 1) << fshift)
-    fr = rng.integers(0, 1 << 32, E.shape, dtype=np.uint64).astype(np.uint32)
-    out.append(("F inconsistent",
-                ((E & ~fmask) | (fr & fmask)).view(np.int32), f0))
-    out.append(("random entries",
-                rng.integers(0, 1 << 32, E.shape, dtype=np.uint64)
-                .astype(np.uint32).view(np.int32),
-                rng.integers(0, tot + 1, len(E)).astype(np.int32)))
-    out.append(("f0 = 0", tab, np.zeros_like(f0)))
-    out.append(("f0 = tot", tab, np.full_like(f0, tot)))
-    return out
-
-
-def _straddle_streams(rng, np, B: int, T: int, a: int, b: int):
-    """(cum, freq, tot) (B, T) int64 range-coder steps: random, except
-    that from step a to step b stream 0 keeps its coder interval across
-    the byte boundary (steering onto it, first, through a multiple of
-    2^24), so that every shift_low defers an 0xFF byte, about two a step;
-    after b it leaves the boundary downwards, so the run flushes as 0xFF
-    bytes a few steps later."""
-    tot = rng.integers(2, 65519, (B, T))
-    freq = np.minimum(rng.integers(1, 65519, (B, T)), tot)
-    cum = (rng.random((B, T)) * (tot - freq + 1)).astype(np.int64)
-    X, R = 0, 0xFFFFFFFF        # low + carry * 2^32, and range
-    for t in range(T):
-        across = X < 1 << 32 < X + R
-        if a <= t < b or (t >= b and across):
-            tt = 1 << 15
-            q = R // tt
-            if t >= b:
-                c, f = 0, 1
-            else:
-                bd = 1 << 32 if across else ((X >> 24) + 1) << 24
-                c, f = min((bd - X) // q, tt - 1), 1
-                if X + c * q == bd and c > 0:
-                    c, f = c - 1, 2
-            tot[0, t], cum[0, t], freq[0, t] = tt, c, f
-        q = R // int(tot[0, t])
-        X += int(cum[0, t]) * q
-        R = q * int(freq[0, t])
-        for _ in range(2):
-            if R < 1 << 24:
-                X = (X << 8) & 0xFFFFFFFF
-                R <<= 8
-    return cum, freq, tot
-
-
-def _longest_run(data, val: int, np) -> int:
-    m = np.concatenate([[0], (data == val).astype(np.int8), [0]])
-    d = np.flatnonzero(np.diff(m))
-    return int((d[1::2] - d[::2]).max()) if len(d) else 0
-
-
-# ---------------------------------------------------------------------
-# the pass-2 window walks' edge cases (csrc/fqz_evolve.cu), shared with
-# tests/test_torch_evolve_windows.py, which holds the numpy mirrors of the
-# walks against the plain versions on them
-
-K_MAX_FREQ = (1 << 16) - 17   # AdaptiveModel: halve when tot passes it
-
-
-def _tiny_lead(rng, nsym, lane, T):
-    """A TinyModel row whose first halving falls at window lane `lane`:
-    tot starts at nsym and rises by one an in-range step, so the halving
-    step is 255 - nsym in-range steps in; out-of-range symbols before
-    them (no bump) move it to the lane.  Random in-range symbols
-    follow."""
-    first = (255 - nsym) % 32
-    lead = (lane - first) % 32
-    row = rng.integers(0, nsym, T)
-    row[:lead] = nsym + 1
-    return row
-
-
-def tiny_window_cases(np):
-    """{name: (symplane (C, T), counts (C,), nsym)} of the TinyModel
-    window walk: a halving at every lane 0-31 of a window (nsym 4 and
-    2), rows ending inside a window, symbols >= nsym, uniform
-    symbols."""
-    rng = np.random.default_rng(21)
-    cases = {}
-    for nsym in (4, 2):
-        sp = np.stack([_tiny_lead(rng, nsym, k, 700) for k in range(32)])
-        cases[f"halving_each_lane_nsym{nsym}"] = (
-            sp, np.full(32, 700), nsym)
-    T = 3 * 32 + 7
-    cases["rows_end_in_window"] = (
-        rng.integers(0, 4, (8, T)),
-        np.array([T, 0, 1, 31, 32, 33, 64 + 17, 2 * 32]), 4)
-    cases["symbols_past_nsym"] = (
-        rng.integers(0, 8, (3, 1500)), np.array([1500, 1499, 290]), 4)
-    cases["symbols_past_nsym2"] = (
-        rng.integers(0, 5, (3, 1500)), np.array([1500, 700, 1]), 2)
-    cases["uniform4"] = (rng.integers(0, 4, (2, 4000)),
-                         np.array([4000, 3333]), 4)
-    cases["uniform2"] = (rng.integers(0, 2, (2, 4000)),
-                         np.array([4000, 2049]), 2)
-    return cases
-
-
-def run255(np, T, breaks=()):
-    """Symbol 255 T times (it climbs to slot 0 in 255 steps and stays),
-    with symbol 7 at the given steps."""
-    row = np.full(T, 255)
-    row[list(breaks)] = 7
-    return row
-
-
-def halvings(np, row, ms, step=16):
-    """Steps of a 256-slot AdaptiveModel row at which the model halves
-    (tot needs each symbol's frequency only, not the slot order)."""
-    f = (np.arange(256) < ms).astype(np.int64)
-    tot, out = int(ms), []
-    for t, s in enumerate(row):
-        f[s] += step
-        tot += step
-        if tot > K_MAX_FREQ:
-            f -= f >> 1
-            tot = int(f.sum())
-            out.append(t)
-    return out
-
-
-def run_window_cases(np):
-    """{name: (symplane (C, T), counts (C,), max_sym (C,))} of the
-    256-slot walk's slot-0 run window: a run of 255 entering slot 0,
-    broken at window lanes 0, 1 and 31; halvings inside runs; max_sym
-    129 and 256; uniform symbols; slot 0 changing hands."""
-    rng = np.random.default_rng(22)
-    cases = {}
-    # once 255 holds slot 0 (from step 255), breaks at window lanes 0, 1
-    # and 31, alone and in pairs
-    brk = [[32 * w + lane for w in range(12, 40, 3)] for lane in (0, 1, 31)]
-    brk.append([32 * 20, 32 * 20 + 1, 32 * 25 + 31, 32 * 26])
-    cases["run255_breaks_at_lanes_0_1_31"] = (
-        np.stack([run255(np, 2000, b) for b in brk]), np.full(4, 2000),
-        np.full(4, 256))
-    # halvings inside runs.  With STEP 16 tot is max_sym + 16 t up to
-    # the first halving whatever the data, so max_sym sets the halvings'
-    # window lanes (first 14-30, second 6-30 for max_sym 256-0).  The
-    # closed form stops before a halving, so runs that end on their
-    # halving step: cut by a break right after it, and a row whose count
-    # ends on it.
-    ms = np.array([256, 200, 129, 64, 0, 256, 256])
-    rows = [run255(np, 6200) for _ in ms]
-    first = halvings(np, rows[5], 256)[0]
-    rows[5][first + 1] = 7
-    counts = np.full(len(ms), 6200)
-    counts[6] = first + 1
-    cases["halving_inside_run"] = (np.stack(rows), counts, ms)
-    z = np.minimum(rng.zipf(1.3, (3, 3000)) - 1, 255)
-    cases["max_sym129"] = (np.minimum(z, 128), np.array([3000, 2500, 77]),
-                           np.full(3, 129))
-    cases["max_sym256"] = (z, np.array([3000, 2999, 33]), np.full(3, 256))
-    cases["uniform256"] = (rng.integers(0, 256, (2, 3000)),
-                           np.array([3000, 1000]), np.full(2, 256))
-    # slot 0's own symbol changes while runs go on (0 leads, 255 takes
-    # over), rows ending inside a window
-    mix = np.where(rng.random((2, 3000)) < 0.9,
-                   np.where(np.arange(3000) < 1500, 0, 255), 9)
-    cases["slot0_changes_rows_end_in_window"] = (
-        mix, np.array([3000 - 13, 1500 + 31]), np.full(2, 256))
-    return cases
 
 
 def _cu_const(name: str) -> int:
@@ -705,16 +354,37 @@ def _max_err(xs, ys) -> int:
     return err
 
 
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+def _work(walk: str, args, result, coded: int = 0) -> tuple[int, int]:
+    """(symbols, bytes) of one launch of walk, counted by gpubench's rule
+    (gbench/roofline.work: from the algorithm, not from the tensors'
+    sizes); coded: a decode's compressed bytes read, the words of the
+    rows its case built."""
+    syms, other = roofline.work(walk, args, result)
+    syms = int(syms)
+    return syms, syms + (coded if other is None else int(other))
 
 
-def _bound(nbytes: int, nops: int):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move nbytes through device memory and do nops int32 operations."""
-    tb = nbytes / HBM_BYTES_S * 1e3
-    to = nops / INT32_OPS_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def _bound(walk: str, syms: int, nbytes: int):
+    """(ms, "bytes" or "operations"): gpubench's least time for a walk of
+    this work (gbench/roofline.least_seconds), and which term sets it."""
+    tb = roofline.least_seconds(0, nbytes, walk)
+    to = roofline.least_seconds(syms, 0, walk)
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _record(res: dict, name: str, label: str, err: int, k_ms: float,
+            p_ms: float, work, note: str = "") -> None:
+    """Logs one timed case of kernel name against its plain version and
+    keeps it in res[name] for the last JSON line; any difference fails
+    the smoke."""
+    b_ms, by = _bound(name, *work)
+    res.setdefault(name, []).append((label, err, k_ms, p_ms, b_ms, by))
+    log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
+        f"({work[0] / k_ms / 1e3:.3f} M symbols/s)  plain {p_ms:.3f} ms  "
+        f"bound {b_ms:.4f} ms ({by})" + note)
+    if err:
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             "version")
 
 
 def kernels_vs_plain(np, torch, dev):
@@ -725,12 +395,13 @@ def kernels_vs_plain(np, torch, dev):
     datas = _streams(rng, np)
     lens = np.array([len(d) for d in datas], np.int32)
     B, T = B_STREAMS, T_STEPS
-    res = {"encode_walk": [], "decode_o0": [], "decode_o1": []}
+    res = {}
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def compact(Rf, words, nw):
+        """(final states, word rows, the rows' bytes) of an encode."""
         Rf = Rf.cpu().numpy().view(np.uint32)
         w = words.cpu().numpy().view(np.uint16)
         nw = nw.cpu().numpy()
@@ -739,19 +410,11 @@ def kernels_vs_plain(np, torch, dev):
         wr = np.zeros((B, Wmax), np.uint16)
         for b, r in enumerate(rows):
             wr[b, :len(r)] = r
-        return Rf, wr
+        return Rf, wr, 2 * int(nw.sum())
 
-    def record(name, label, err, k_ms, p_ms, nsym, nbytes, note=""):
-        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsym)
-        res[name].append((label, err, k_ms, p_ms, b_ms, by))
-        log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
-            f"({nsym / k_ms / 1e6:.3f} GB/s of symbols)  plain {p_ms:.3f} ms"
-            f"  bound {b_ms:.4f} ms ({by})" + note)
-
-    def check_enc(label, args, kw, nsym):
-        k_ms, k_out = _time(lambda: rans_cuda.encode_walk(*args, **kw), 5)
-        p_ms, p_out = _time(
-            lambda: rans_torch.encode_walk_ref(*args, **kw), 1)
+    def check_enc(label, args):
+        k_ms, k_out = _time(lambda: rans_cuda.encode_walk(*args), 5)
+        p_ms, p_out = _time(lambda: rans_torch.encode_walk_ref(*args), 1)
         nk, npl = k_out[2], p_out[2]
         err = _max_err([k_out[0], nk], [p_out[0], npl])
         cap = T * 32
@@ -759,9 +422,8 @@ def kernels_vs_plain(np, torch, dev):
             n = int(nk[b])
             err = max(err, _max_err([k_out[1][b, cap - n:]],
                                     [p_out[1][b, cap - n:]]))
-        nbytes = (_nbytes(*args[:2], *kw.values(), k_out[0], k_out[2])
-                  + 2 * int(nk.sum()))
-        record("encode_walk", label, err, k_ms, p_ms, nsym, nbytes)
+        _record(res, "encode_walk", label, err, k_ms, p_ms,
+                _work("encode_walk", args, k_out))
         return k_out
 
     # order-0: uint8 plane + symbol counts, native prep tables
@@ -772,9 +434,9 @@ def kernels_vs_plain(np, torch, dev):
         freqs0[b] = engine_cuda.o0_prep(d.tobytes())[1]
     tab0 = rans_torch.tables_from_numpy(freqs0, "freqs", shift=12,
                                         device=dev)
-    enc0 = check_enc("o0 shift12", (put(plane.reshape(B, T, 32)), tab0, 12),
-                     {"nsym": put(lens)}, int(lens.sum()))
-    Rf0, w0 = compact(*enc0)
+    enc0 = check_enc("o0 shift12", (put(plane.reshape(B, T, 32)), tab0, 12,
+                                    None, put(lens)))
+    Rf0, w0, coded = compact(*enc0)
     s3_0 = rans_torch.tables_from_numpy(rans_torch.build_s3(freqs0, 12),
                                         "s3", device=dev)
     args = (put(w0.view(np.int16)), put(Rf0.view(np.int32)), s3_0,
@@ -787,9 +449,9 @@ def kernels_vs_plain(np, torch, dev):
         t = len(d) // 32
         if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
             raise AssertionError(f"decode_o0: stream {b} does not round-trip")
-    record("decode_o0", "shift12", err, k_ms, p_ms,
-           int((lens // 32).sum()) * 32, _nbytes(*args[:4], *k_out),
-           "  (round-trips the sources)")
+    _record(res, "decode_o0", "shift12", err, k_ms, p_ms,
+            _work("decode_o0", args, k_out, coded),
+            "  (round-trips the sources)")
 
     # order-1: flat ctx*256+sym plane, per-chunk layout, lane 31 seeded
     iszs = lens // 32
@@ -806,13 +468,12 @@ def kernels_vs_plain(np, torch, dev):
     R0 = np.full((B, 32), rans_torch.RANS_L, np.uint32)
     R0[:, 31] = rng.integers(1 << 15, 1 << 31, B)
     for shift in (10, 12):
-        fr = _normalise(counts.reshape(B, 256, 256), shift, np)
+        fr = torch_cases.normalise(counts.reshape(B, 256, 256), shift)
         tab1 = rans_torch.tables_from_numpy(fr, "freqs", shift=shift,
                                             device=dev)
-        enc1 = check_enc(f"o1 shift{shift}", (put(flat), tab1, shift),
-                         {"R0": put(R0.view(np.int32))},
-                         int(iszs.sum()) * 32)
-        Rf1, w1 = compact(*enc1)
+        enc1 = check_enc(f"o1 shift{shift}", (put(flat), tab1, shift,
+                                              put(R0.view(np.int32))))
+        Rf1, w1, coded = compact(*enc1)
         s3_1 = rans_torch.tables_from_numpy(
             rans_torch.build_s3(fr, shift).reshape(B, -1), "s3",
             device=dev)
@@ -829,14 +490,9 @@ def kernels_vs_plain(np, torch, dev):
                 raise AssertionError(
                     f"decode_o1 shift{shift}: stream {b} does not "
                     "round-trip")
-        record("decode_o1", f"shift{shift}", err, k_ms, p_ms,
-               int(iszs.sum()) * 32, _nbytes(*args[:4], *k_out),
-               "  (round-trips the sources)")
-    for name, rows in res.items():
-        bad = [r for r in rows if r[1] != 0]
-        if bad:
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{bad}")
+        _record(res, "decode_o1", f"shift{shift}", err, k_ms, p_ms,
+                _work("decode_o1", args, k_out, coded),
+                "  (round-trips the sources)")
     return res
 
 
@@ -847,8 +503,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
                                         rc_cuda, rc_torch)
 
     rng = np.random.default_rng(SEED + 1)
-    res = {"evolve_128": [], "evolve_256": [], "tiny_evolve": [],
-           "rc_encode_walk": []}
+    res = {}
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -861,25 +516,17 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         z = rng.zipf(1.3, (C, T))
         sp = np.minimum(z - 1, ms[:, None] - 1).astype(np.uint8)
         sp[1] = ms[1] - 1
-        return put(sp), put(counts), put(ms), int(counts.sum())
-
-    def record(name, label, err, k_ms, p_ms, steps, nbytes):
-        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * steps)
-        res[name].append((label, err, k_ms, p_ms, b_ms, by))
-        log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
-            f"({steps / k_ms / 1e3:.3f} M steps/s)  plain {p_ms:.3f} ms"
-            f"  bound {b_ms:.4f} ms ({by})")
+        return put(sp), put(counts), put(ms)
 
     for name, fn, cap, (C, T, M) in (
             ("evolve_128", model_cuda.evolve_128, 128, (65536, 4096, 96)),
             ("evolve_256", model_cuda.evolve_256, 256, (4, 4096, 256))):
-        sp, ct, ms, steps = model_case(C, T, M)
+        sp, ct, ms = model_case(C, T, M)
         k_ms, k_out = _time(lambda: fn(sp, ct, ms), 3)
         p_ms, p_out = _time(
             lambda: fqz_model_torch.evolve_ref(sp, ct, ms, cap), 1)
-        # each used symbol read once, (cf, tot) written per step
-        record(name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms, p_ms,
-               steps, steps * 9 + _nbytes(ct, ms))
+        _record(res, name, f"C={C} T={T}", _max_err(k_out, p_out), k_ms,
+                p_ms, _work(name, (sp, ct, ms), k_out))
     evolve_edge_cases(np, torch, dev, rng)
     window_edge_cases(np, torch, dev)
     for nsym in (4, 2):
@@ -890,10 +537,9 @@ def adaptive_kernels_vs_plain(np, torch, dev):
             lambda: model_cuda.tiny_evolve(sp, counts, nsym), 3)
         p_ms, p_out = _time(
             lambda: fqz_model_torch.tiny_evolve_ref(sp, counts, nsym), 1)
-        steps = int(counts.sum())
-        record("tiny_evolve", f"nsym={nsym} C={C} T={T}",
-               _max_err(k_out, p_out), k_ms, p_ms, steps,
-               steps * 9 + _nbytes(counts))
+        _record(res, "tiny_evolve", f"nsym={nsym} C={C} T={T}",
+                _max_err(k_out, p_out), k_ms, p_ms,
+                _work("tiny_evolve", (sp, counts, nsym), k_out))
 
     def rc_case(label, cum, freq, tot, lens, chunk):
         """B streams of up to T steps walked in chunks of `chunk` steps
@@ -907,6 +553,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
         st_k = st_p = rc_torch.init_state(B, dev)
         err = 0
         k_tot = p_tot = 0.0
+        work = [0, 0]
         outs = [[] for _ in range(B)]
         ffs = []
         for t0 in range(0, T, chunk):
@@ -918,6 +565,8 @@ def adaptive_kernels_vs_plain(np, torch, dev):
                 lambda: rc_cuda.encode_walk(cf, tt, off, n, st_in, cap), 3)
             p_ms, p_out = _time(lambda: rc_torch.encode_walk_ref(
                 cf, tt, off, n, st_p, cap), 1)
+            w = _work("rc_encode_walk", (cf, tt, off, n, st_in, cap), k_out)
+            work = [a + b for a, b in zip(work, w)]
             err = max(err, _max_err(k_out[1:], p_out[1:]))
             totals = k_out[1].cpu().numpy()
             for b in range(B):
@@ -930,11 +579,7 @@ def adaptive_kernels_vs_plain(np, torch, dev):
             k_tot += k_ms
             p_tot += p_ms
         outs = [np.concatenate(o) for o in outs]
-        # (cum<<16|freq, tot) read per step; each chunk's states in and out
-        nchunk = -(-T // chunk)
-        record("rc_encode_walk", label, err, k_tot, p_tot, int(lens.sum()),
-               8 * int(lens.sum()) + sum(len(o) for o in outs)
-               + 2 * 4 * 5 * B * nchunk)
+        _record(res, "rc_encode_walk", label, err, k_tot, p_tot, work)
         return outs, ffs
 
     # range coder: 16 ragged streams of up to 4096 steps, two chunks
@@ -954,22 +599,16 @@ def adaptive_kernels_vs_plain(np, torch, dev):
     # a deferred 0xFF run longer than the kernel's shared-memory ring of
     # flush records, deferred across the chunk boundary and flushed in
     # the second launch
-    cum, freq, tot = _straddle_streams(rng, np, 2, T, 500, 3500)
+    cum, freq, tot = torch_cases.straddle_streams(rng, 2, T, 500, 3500)
     outs, ffs = rc_case(f"B=2 T={T} in 2 chunks, long 0xFF run", cum, freq,
                         tot, np.full(2, T), chunk)
-    run = _longest_run(outs[0], 0xFF, np)
+    run = torch_cases.longest_run(outs[0], 0xFF)
     if run <= RC_RING_RECORDS or ffs[0][0] <= 0:
         raise AssertionError(
             f"rc_encode_walk: the longest 0xFF run is {run} bytes (ring "
             f"{RC_RING_RECORDS}), {ffs[0][0]} deferred at the chunk boundary")
     log(f"  rc_encode_walk long-run case: a run of {run} 0xFF bytes, "
         f"{ffs[0][0]} of them deferred across the chunk boundary")
-
-    for name, rows in res.items():
-        bad = [r for r in rows if r[1] != 0]
-        if bad:
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{bad}")
     return res
 
 
@@ -978,7 +617,8 @@ def _o1_walk_case(B, T, shift, A, g, np, torch, dev, walk=True):
     walk (steps -2..2) over A quality-like symbols from 33, as the
     corpus's qualities are, or (walk=False) uniform over bytes 1..A:
     encoded on the card by the encode walk.  Returns (decode_o1
-    arguments, the symbols (B, T, 32) uint8)."""
+    arguments, the symbols (B, T, 32) uint8, the frequencies (B, 256,
+    256), the word rows' bytes)."""
     from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
 
     if walk:
@@ -996,7 +636,7 @@ def _o1_walk_case(B, T, shift, A, g, np, torch, dev, walk=True):
     flat[:, 1:] += sym[:, :-1] * 256      # context: the lane's last symbol
     counts = torch.stack([torch.bincount(flat[b].view(-1), minlength=65536)
                           for b in range(B)]).cpu().numpy()
-    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
+    freqs = torch_cases.normalise(counts.reshape(B, 256, 256), shift)
     Rf, w, nw = rans_cuda.encode_walk(
         flat, rans_torch.tables_from_numpy(freqs, "freqs", shift=shift,
                                            device=dev), shift)
@@ -1011,14 +651,15 @@ def _o1_walk_case(B, T, shift, A, g, np, torch, dev, walk=True):
     s3 = rans_torch.tables_from_numpy(
         rans_torch.build_s3(freqs, shift).reshape(B, -1), "s3", device=dev)
     t_real = torch.full((B,), T, dtype=torch.int32, device=dev)
-    return (words, Rf, s3, t_real, T, shift), sym.to(torch.uint8), freqs
+    return ((words, Rf, s3, t_real, T, shift), sym.to(torch.uint8), freqs,
+            2 * int(nw.sum()))
 
 
 def _o0_walk_case(B, T, g, np, torch, dev, alphabet=b"ACGT"):
     """B order-0 streams of T steps a lane uniform over alphabet (DNA
     bases: -1's order-0 streams are its reads' bases), encoded on the card
     by the encode walk.  Returns (decode_o0 arguments, the symbols (B, T, 32)
-    uint8, the frequencies (B, 256))."""
+    uint8, the frequencies (B, 256), the word rows' bytes)."""
     from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
 
     alpha = torch.tensor(list(alphabet), dtype=torch.uint8, device=dev)
@@ -1027,7 +668,7 @@ def _o0_walk_case(B, T, g, np, torch, dev, alphabet=b"ACGT"):
     counts = torch.stack([torch.bincount(sym[b].view(-1).to(torch.int64),
                                          minlength=256)
                           for b in range(B)]).cpu().numpy()
-    freqs = _normalise(counts, 12, np)
+    freqs = torch_cases.normalise(counts, 12)
     Rf, w, nw = rans_cuda.encode_walk(
         sym, rans_torch.tables_from_numpy(freqs, "freqs", shift=12,
                                           device=dev), 12,
@@ -1042,7 +683,7 @@ def _o0_walk_case(B, T, g, np, torch, dev, alphabet=b"ACGT"):
     s3 = rans_torch.tables_from_numpy(rans_torch.build_s3(freqs, 12), "s3",
                                       device=dev)
     t_real = torch.full((B,), T, dtype=torch.int32, device=dev)
-    return (words, Rf, s3, t_real, T), sym, freqs
+    return (words, Rf, s3, t_real, T), sym, freqs, 2 * int(nw.sum())
 
 
 def check(name: str, label: str, got, want) -> None:
@@ -1084,18 +725,18 @@ def evolve_edge_cases(np, torch, dev, rng) -> None:
 
 
 # the main path's longest pass-2 rows at -5 (100 MB blocks of 150 bp
-# reads, a SEQ10 and a SEQ12B job a batch; logged by LaunchShapes): the
-# TinyModel context every read starts in (one occurrence a read), and the
-# run-length model of the base class (runs cross records, cut into
-# chunks of 255)
+# reads, a SEQ10 and a SEQ12B job a batch; PERF.md's kernel table, rows
+# 11 and 12): the TinyModel context every read starts in (one occurrence a
+# read), and the run-length model of the base class (runs cross records,
+# cut into chunks of 255)
 LONG_TINY_T = 318_825
 LONG_RUN_T = 187_545
 
 
 def window_edge_cases(np, torch, dev) -> None:
     """The TinyModel walks and the 256-slot walk against their plain
-    versions, zero tolerance, on the cases of tiny_window_cases and
-    run_window_cases: each case alone (the warp layouts), the TinyModel
+    versions, zero tolerance, on the cases of torch_cases.tiny_window_cases
+    and run_window_cases: each case alone (the warp layouts), the TinyModel
     cases of each nsym tiled past csrc/fqz_evolve.cu's kTinyThreadMinC
     contexts (the thread layout), and the main path's longest rows, C = 2
     x LONG_TINY_T random bases and C = 2 x LONG_RUN_T of symbol 255 (the
@@ -1108,7 +749,7 @@ def window_edge_cases(np, torch, dev) -> None:
                 for a in arrays]
 
     tiled = {4: [], 2: []}
-    for name, (sp, counts, nsym) in tiny_window_cases(np).items():
+    for name, (sp, counts, nsym) in torch_cases.tiny_window_cases().items():
         args = put(sp.astype(np.uint8), counts.astype(np.int32))
         check("tiny_evolve", f"{name} C={sp.shape[0]}",
               model_cuda.tiny_evolve(*args, nsym),
@@ -1126,7 +767,7 @@ def window_edge_cases(np, torch, dev) -> None:
         check("tiny_evolve", f"nsym={nsym} cases tiled C={len(ct) * reps}",
               model_cuda.tiny_evolve(*args, nsym),
               fqz_model_torch.tiny_evolve_ref(*args, nsym))
-    for name, (sp, counts, ms) in run_window_cases(np).items():
+    for name, (sp, counts, ms) in torch_cases.run_window_cases().items():
         args = put(sp.astype(np.uint8), counts.astype(np.int32),
                    ms.astype(np.int32))
         check("evolve_256", f"{name} C={sp.shape[0]}",
@@ -1172,8 +813,8 @@ def decode_o1_edge_cases(np, torch, dev) -> None:
     for shift, A, route in ((12, 51, "shared"), (12, 52, "global"),
                             (10, 140, "shared"), (10, 141, "global"),
                             (12, 256, "s3")):
-        args, sym, _ = _o1_walk_case(8, 1024, shift, A - 1, g, np, torch,
-                                     dev, walk=False)
+        args, sym, *_ = _o1_walk_case(8, 1024, shift, A - 1, g, np, torch,
+                                      dev, walk=False)
         s3 = args[2].cpu().numpy().view(np.uint32)
         tabs = [rans_torch.o1_compact_tables(r, shift) for r in s3]
         if {(len(t[0]), t[1]) for t in tabs} != {(A, route)}:
@@ -1193,13 +834,13 @@ def decode_o1_edge_cases(np, torch, dev) -> None:
 
 def dense_o0_edge_cases(np, torch, dev) -> None:
     """decode_dense_o1 and decode_o0 against their plain versions, zero
-    tolerance, on tests/test_torch_dense_walk.py's cases (dense_case,
-    DENSE_CASES, o0_case): each dense case round-trips, then runs with
-    ragged lengths (one 0), with its word rows cut to a quarter and with
-    the boundaries of half its rows out of order (scramble_boundaries;
-    against the numpy mirror, and in the packed form against the plain
-    version too); tables
-    as the engine builds them at shift 12 (single-symbol contexts wrapped
+    tolerance, on tests/test_torch_dense_walk.py's cases (torch_cases:
+    dense_case, DENSE_CASES, o0_case): each dense case round-trips, then
+    runs with ragged lengths (one 0), with its word rows cut to a quarter
+    and with the boundaries of half its rows out of order
+    (scramble_boundaries; against the numpy mirror, and in the packed form
+    against the plain version too); tables as the engine builds them at
+    shift 12 (single-symbol contexts wrapped
     in s3, byte 0 from the contexts that never occur); the order-0 cases
     with ragged lengths and rows cut short; and decode_o0 at B = 200
     (more streams than SMs: several blocks share an SM)."""
@@ -1209,7 +850,7 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    T = EDGE_T
+    T = torch_cases.EDGE_T
     full = np.full(3, T, np.int32)
     ragged = np.array([T, 17, 0], np.int32)
 
@@ -1231,8 +872,8 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
         # mirror (every slot written, none read out of bounds) and, in the
         # packed form, where the two agree on any boundaries, against the
         # plain version
-        bad = scramble_boundaries(np, np.random.default_rng(A1 + shift),
-                                  tab, A, A1)
+        bad = torch_cases.scramble_boundaries(
+            np.random.default_rng(A1 + shift), tab, A, A1)
         args = (put(words), put(R0), put(bad), put(full), T, shift, A, A1,
                 last0)
         got = rans_cuda_bnd.decode_dense_o1(*args)
@@ -1245,24 +886,24 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
             check("decode_dense_o1", f"{label} boundaries out of order",
                   got, rans_bnd_torch.decode_dense_o1_ref(*args))
 
-    for shift, A, zero, route in DENSE_CASES:
+    for shift, A, zero, route in torch_cases.DENSE_CASES:
         rng = np.random.default_rng(1000 * shift + A)
-        words, R0, tab, A1, last0, sym, _ = dense_case(np, rng, A, shift,
-                                                       zero)
+        words, R0, tab, A1, last0, sym, _ = torch_cases.dense_case(
+            rng, A, shift, zero)
         if rans_bnd_torch.dense_route(A, shift) != route:
             raise AssertionError(f"dense case A={A} shift{shift} is not on "
                                  f"the {route} route")
         dense(f"A={A} A1={A1} shift{shift} {route}", words, R0, tab, shift,
               A, A1, last0, sym)
-    words, R0, _, _, _, sym, freqs = dense_case(
-        np, np.random.default_rng(12), 5, 12, False)
+    words, R0, _, _, _, sym, freqs = torch_cases.dense_case(
+        np.random.default_rng(12), 5, 12, False)
     tab, _, A, A1, last0 = rans_bnd_torch.build_o1_dense_tables(
         rans_bnd_torch.freqs_from_s3(rans_torch.build_s3(freqs, 12)
                                      .reshape(3, -1), 12), 12)
     dense(f"engine tables A={A} A1={A1} shift12", words, R0, tab, 12, A, A1,
           last0, sym + 1)
 
-    words, R0, s3, plane = o0_case(np, np.random.default_rng(7))
+    words, R0, s3, plane = torch_cases.o0_case(np.random.default_rng(7))
     t_real = np.array([T, 13, 0, T - 1], np.int32)
     for what, w in (("ragged, one empty", words),
                     ("rows cut short", words[:, :max(1, words.shape[1] // 4)])):
@@ -1278,7 +919,7 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
     datas = [rng.choice(np.frombuffer(b"ACGT", np.uint8),
                         int(rng.integers(1, cap + 1))) for _ in range(200)]
     datas[7] = datas[7][:20]
-    freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+    freqs, words, R0, _, lens = _o0_words(datas, dev, np, torch)
     args = (words, R0, rans_torch.tables_from_numpy(
         rans_torch.build_s3(freqs, 12), "s3", device=dev), put(lens // 32),
         T_STEPS)
@@ -1295,33 +936,34 @@ def dense_o0_edge_cases(np, torch, dev) -> None:
 
 def bnd_o0_edge_cases(np, torch, dev) -> None:
     """decode_bnd_o0 against decode_bnd_o0_ref, zero tolerance, on
-    tests/test_torch_bnd_o0_walk.py's cases (bnd_o0_case, BND_O0_CASES,
-    bnd_o0_variants): each case round-trips (a single-symbol stream, f0 =
-    tot, among them), then runs with ragged lengths (one 0), with its word
-    rows cut to a quarter and with each table of BND_O0_VARIANTS (rows
-    below tot, boundaries out of order, inconsistent F fields, random
-    entries, f0 = 0 and tot); then at B = 200 (more streams than SMs:
-    several blocks share an SM) with packed and counter tables as the
-    engine builds them, round-tripping."""
+    tests/test_torch_bnd_o0_walk.py's cases (torch_cases: bnd_o0_case,
+    BND_O0_CASES, bnd_o0_variants): each case round-trips (a
+    single-symbol stream, f0 = tot, among them), then runs with ragged
+    lengths (one 0), with its word rows cut to a quarter and with each
+    table of BND_O0_VARIANTS (rows below tot, boundaries out of order,
+    inconsistent F fields, random entries, f0 = 0 and tot); then at B =
+    200 (more streams than SMs: several blocks share an SM) with packed
+    and counter tables as the engine builds them, round-tripping."""
     from fqzcomp5_tpu_torch.ops import (rans_bnd_torch, rans_cuda_bnd,
                                         rans_torch)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    T = EDGE_T
+    T = torch_cases.EDGE_T
     full = np.full(4, T, np.int32)
     ragged = np.array([T, 17, 0, T - 1], np.int32)
-    for shift, S, packed in BND_O0_CASES:
+    for shift, S, packed in torch_cases.BND_O0_CASES:
         rng = np.random.default_rng(1000 * shift + S + packed)
-        words, R0, tab, f0, plane, freqs = bnd_o0_case(np, rng, S, shift,
-                                                        packed)
+        words, R0, tab, f0, plane, freqs = torch_cases.bnd_o0_case(
+            rng, S, shift, packed)
         runs = [("round-trips", words, tab, f0, full),
                 ("ragged, one empty", words, tab, f0, ragged),
                 ("rows cut short", words[:, :max(1, words.shape[1] // 4)],
                  tab, f0, full)]
         runs += [(what, words, t, f, full) for what, t, f in
-                 bnd_o0_variants(np, rng, freqs, tab, S, shift, packed)]
+                 torch_cases.bnd_o0_variants(rng, freqs, tab, S, shift,
+                                             packed)]
         for what, w, t, f, tr in runs:
             args = (put(w), put(R0), put(t), put(f), put(tr), T, S)
             got = rans_cuda_bnd.decode_bnd_o0(*args, packed=packed,
@@ -1342,7 +984,7 @@ def bnd_o0_edge_cases(np, torch, dev) -> None:
         datas = [rng.choice(alphabet, int(rng.integers(1, cap + 1)))
                  for _ in range(200)]
         datas[7] = datas[7][:20]
-        freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+        freqs, words, R0, _, lens = _o0_words(datas, dev, np, torch)
         tab, f0, S, packed = rans_bnd_torch.o0_tables(
             rans_torch.build_s3(freqs, 12))
         if S != want_S:
@@ -1384,8 +1026,8 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
                                         rans_cuda_dec, rans_torch, rc_cuda,
                                         rc_torch)
 
-    def show(name, label, ms, T, nsteps, nbytes):
-        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsteps)
+    def show(name, label, ms, T, work):
+        b_ms, by = _bound(name, *work)
         log(f"  walk {name} {label}: {ms:.3f} ms ({T / ms / 1e3:.3f} M "
             f"steps/s a stream, {ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step "
             f"at {CLOCK_HZ / 1e9:.2f} GHz)  bound {b_ms:.4f} ms ({by})")
@@ -1393,16 +1035,15 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     for B, T, shift, A, walk in WALK_DECODE_O1:
-        args, sym, freqs = _o1_walk_case(B, T, shift, A, g, np, torch, dev,
-                                         walk)
+        args, sym, freqs, coded = _o1_walk_case(B, T, shift, A, g, np,
+                                                torch, dev, walk)
         kind = "" if walk else " uniform"
         k_ms, out = _time(lambda: rans_cuda_dec.decode_o1(*args), 1)
         if not torch.equal(out[0], sym):
             raise AssertionError(f"decode_o1 B={B} T={T} shift{shift}: the "
                                  "symbols do not round-trip")
-        # words, states, tables and lengths read; symbols, states written
         show("decode_o1", f"B={B} T={T} shift{shift} A={A}{kind}", k_ms, T,
-             B * T * 32, _nbytes(*args[:4], *out))
+             _work("decode_o1", args, out, coded))
         del out
         # the same streams through the dense tables (A symbols, byte 0
         # not among them: A1 = A + 1)
@@ -1416,17 +1057,18 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
             raise AssertionError(f"decode_dense_o1 B={B} T={T} shift{shift}: "
                                  "the symbols do not round-trip")
         show("decode_dense_o1", f"B={B} T={T} shift{shift} A={A} A1={A1}"
-             f"{kind}", k_ms, T, B * T * 32, _nbytes(*dargs[:4], *out))
+             f"{kind}", k_ms, T, _work("decode_dense_o1", dargs, out, coded))
         del args, dargs, sym, out
     for B, T, alphabet in WALK_DECODE_O0:
-        args, sym, freqs = _o0_walk_case(B, T, g, np, torch, dev, alphabet)
+        args, sym, freqs, coded = _o0_walk_case(B, T, g, np, torch, dev,
+                                                alphabet)
         kind = "ACGT" if alphabet == b"ACGT" else "uniform bytes"
         k_ms, out = _time(lambda: rans_cuda_dec.decode_o0(*args), 1)
         if not torch.equal(out[0], sym):
             raise AssertionError(f"decode_o0 B={B} T={T}: the symbols do not "
                                  "round-trip")
-        show("decode_o0", f"B={B} T={T} {kind}", k_ms, T, B * T * 32,
-             _nbytes(*args[:4], *out))
+        show("decode_o0", f"B={B} T={T} {kind}", k_ms, T,
+             _work("decode_o0", args, out, coded))
         # the same streams through the boundary tables, as -1's
         # FQZ5_DEC_V3 decode builds them (S = 256, the counter form)
         tab, f0, S, packed = rans_bnd_torch.o0_tables(
@@ -1439,8 +1081,8 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
             raise AssertionError(f"decode_bnd_o0 B={B} T={T}: the symbols do "
                                  "not round-trip")
         show("decode_bnd_o0", f"B={B} T={T} {kind} S={S} "
-             f"{'packed' if packed else 'counter'}", k_ms, T, B * T * 32,
-             _nbytes(*bargs[:5], *out))
+             f"{'packed' if packed else 'counter'}", k_ms, T,
+             _work("decode_bnd_o0", bargs, out, coded))
         # a launch's fixed cost (its prologue): one step a stream
         one = (*bargs[:4], torch.ones_like(bargs[4]), 1, S)
         p_ms, _ = _time(lambda: rans_cuda_bnd.decode_bnd_o0(
@@ -1451,9 +1093,10 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     if decode_only:
         return
 
-    def show_evolve(name, label, ms, counts):
-        C, steps, T = len(counts), int(counts.sum()), int(counts.max())
-        b_ms, by = _bound(steps * 9 + 8 * C, OPS_PER_STEP[name] * steps)
+    def show_evolve(name, label, ms, args):
+        counts = args[1].cpu()
+        steps, T = int(counts.sum()), int(counts.max())
+        b_ms, by = _bound(name, *_work(name, args, None))
         log(f"  walk {name} {label}: {ms:.3f} ms ({steps / ms / 1e3:.3f} M "
             f"steps/s; {ms * 1e-3 * CLOCK_HZ * SMS / steps:.1f} SM-cycles a "
             f"step, {ms * 1e-3 * CLOCK_HZ / T:.1f} cycles a step of the "
@@ -1467,7 +1110,7 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
         args = [torch.from_numpy(a).to(dev) for a in
                 (sp, counts, np.full(C, M, np.int32))]
         k_ms, _ = _time(lambda: model_cuda.evolve_128(*args), 3)
-        show_evolve("evolve_128", f"C={C} T={T} max_sym={M}", k_ms, counts)
+        show_evolve("evolve_128", f"C={C} T={T} max_sym={M}", k_ms, args)
     for C, T, nsym in WALK_TINY:
         # a count bucket holds the counts in (T/4, T], the first 1..16
         counts = np.full(C, T, np.int32) if C <= 2 else \
@@ -1478,7 +1121,8 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
                            generator=g)
         ct = torch.from_numpy(counts).to(dev)
         k_ms, _ = _time(lambda: model_cuda.tiny_evolve(sp, ct, nsym), 3)
-        show_evolve("tiny_evolve", f"C={C} T={T} nsym={nsym}", k_ms, counts)
+        show_evolve("tiny_evolve", f"C={C} T={T} nsym={nsym}", k_ms,
+                    (sp, ct, nsym))
         del sp
     for label, C, T in WALK_EVOLVE_256:
         counts = np.full(C, T, np.int32)
@@ -1492,7 +1136,7 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
         args = [torch.from_numpy(a).to(dev) for a in
                 (sp, counts, np.full(C, 256, np.int32))]
         k_ms, _ = _time(lambda: model_cuda.evolve_256(*args), 3)
-        show_evolve("evolve_256", f"{label} C={C} T={T}", k_ms, counts)
+        show_evolve("evolve_256", f"{label} C={C} T={T}", k_ms, args)
     for B, T in ((12, 1 << 24), (2, 1 << 22)):
         tot = torch.randint(2, 65519, (B * T,), device=dev, dtype=torch.int32,
                             generator=g)
@@ -1509,10 +1153,8 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
         cap = rc_torch.cap_for(T, 0)
         k_ms, out = _time(
             lambda: rc_cuda.encode_walk(cf, tot, off, n, st, cap), 1)
-        # cf and tot read per step; the bytes emitted; states in and out
-        show("rc_encode_walk", f"B={B} T={T}", k_ms, T, B * T,
-             _nbytes(cf, tot, off, n, st, *out[1:])
-             + int(out[1].to(torch.int64).sum()))
+        show("rc_encode_walk", f"B={B} T={T}", k_ms, T,
+             _work("rc_encode_walk", (cf, tot, off, n, st, cap), out))
         del cf, tot
     # 40-symbol alphabets (quality-like), every symbol and pair coded
     B, T, A = 4, 1 << 20, 40
@@ -1527,23 +1169,22 @@ def walk_times(np, torch, dev, decode_only: bool = False) -> None:
     flat = ctx * 256 + sym.to(torch.int32)
     del ctx
     nsym = torch.full((B,), T * 32, device=dev, dtype=torch.int32)
-    for label, args, kw in (
+    for label, args in (
             ("o0 u8 shift12", (sym, rans_torch.tables_from_numpy(
-                _normalise(f0, 12, np), "freqs", shift=12, device=dev), 12),
-             {"nsym": nsym}),
+                torch_cases.normalise(f0, 12), "freqs", shift=12,
+                device=dev), 12, None, nsym)),
             ("o1 flat shift12", (flat, rans_torch.tables_from_numpy(
-                _normalise(f1, 12, np), "freqs", shift=12, device=dev), 12),
-             {})):
-        k_ms, out = _time(lambda: rans_cuda.encode_walk(*args, **kw), 1)
-        # plane, table and states read; the words emitted written
-        show("encode_walk", f"{label} B={B} T={T}", k_ms, T, B * T * 32,
-             _nbytes(*args[:2], *kw.values(), out[0], out[2])
-             + 2 * int(out[2].to(torch.int64).sum()))
+                torch_cases.normalise(f1, 12), "freqs", shift=12,
+                device=dev), 12))):
+        k_ms, out = _time(lambda: rans_cuda.encode_walk(*args), 1)
+        show("encode_walk", f"{label} B={B} T={T}", k_ms, T,
+             _work("encode_walk", args, out))
 
 
 def _o0_words(datas, dev, np, torch):
     """Order-0 walks of byte streams through the encode kernel: (freqs
-    (B, 256), words (B, W) int16 tensor, R0 (B, 32) int32 tensor, lens)."""
+    (B, 256), words (B, W) int16 tensor, R0 (B, 32) int32 tensor, the
+    words' bytes, lens)."""
     from fqzcomp5_tpu_torch import engine_cuda
     from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
 
@@ -1564,7 +1205,7 @@ def _o0_words(datas, dev, np, torch):
 def _o1_words(datas, shift, dev, np, torch):
     """Order-1 chunked walks (lane z owns bytes [z*isz, (z+1)*isz)) of
     byte streams through the encode kernel at the given shift: (freqs
-    (B, 256, 256), words, R0, iszs)."""
+    (B, 256, 256), words, R0, the words' bytes, iszs)."""
     from fqzcomp5_tpu_torch.ops import rans_cuda, rans_torch
 
     B, T = len(datas), T_STEPS
@@ -1577,7 +1218,7 @@ def _o1_words(datas, shift, dev, np, torch):
         flat[b, 0] = ch[0]
         flat[b, 1:isz] = ch[:-1] * 256 + ch[1:]
         counts[b] = np.bincount(flat[b, :isz].reshape(-1), minlength=65536)
-    freqs = _normalise(counts.reshape(B, 256, 256), shift, np)
+    freqs = torch_cases.normalise(counts.reshape(B, 256, 256), shift)
     Rf, w, nw = rans_cuda.encode_walk(
         torch.from_numpy(flat).to(dev),
         rans_torch.tables_from_numpy(freqs, "freqs", shift=shift,
@@ -1587,13 +1228,15 @@ def _o1_words(datas, shift, dev, np, torch):
 
 def _compact_words(Rf, w, nw, dev, np, torch):
     """An encode walk's (Rf, words, nwords) -> (words (B, W) int16, R0
-    (B, 32) int32) on dev, the rows a decode walk reads."""
+    (B, 32) int32) on dev, the rows a decode walk reads, and their words'
+    bytes."""
     w = w.cpu().numpy().view(np.uint16)
     nw = nw.cpu().numpy()
     rows = np.zeros((len(nw), max(1, int(nw.max()))), np.uint16)
     for b, n in enumerate(nw):
         rows[b, :n] = w[b, w.shape[1] - n:]
-    return torch.from_numpy(rows.view(np.int16)).to(dev), Rf
+    return (torch.from_numpy(rows.view(np.int16)).to(dev), Rf,
+            2 * int(nw.sum()))
 
 
 def bnd_kernels_vs_plain(np, torch, dev):
@@ -1607,7 +1250,7 @@ def bnd_kernels_vs_plain(np, torch, dev):
     rng = np.random.default_rng(SEED + 2)
     B, T = B_STREAMS, T_STEPS
     cap = T * 32
-    res = {"decode_bnd_o0": [], "decode_dense_o1": []}
+    res = {}
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1623,20 +1266,13 @@ def bnd_kernels_vs_plain(np, torch, dev):
     def qual(n, lo, width):
         return np.cumsum(rng.integers(-2, 3, n)) % width + lo
 
-    def record(name, label, err, k_ms, p_ms, nsym, nbytes):
-        b_ms, by = _bound(nbytes, OPS_PER_STEP[name] * nsym)
-        res[name].append((label, err, k_ms, p_ms, b_ms, by))
-        log(f"  {name} {label}: max_abs_err {err}  kernel {k_ms:.3f} ms "
-            f"({nsym / k_ms / 1e6:.3f} GB/s of symbols)  plain {p_ms:.3f} ms"
-            f"  bound {b_ms:.4f} ms ({by})  (round-trips the sources)")
-
     dna = np.frombuffer(b"ACGTN", np.uint8)
     for want_S, make in (
             (16, lambda n: rng.choice(np.arange(2, 12), n)),
             (48, lambda n: qual(n, 2, 40)),
             (256, lambda n: rng.choice(dna, n, p=[.3, .2, .2, .29, .01]))):
         datas = streams(make)
-        freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+        freqs, words, R0, coded, lens = _o0_words(datas, dev, np, torch)
         tab, f0, S, packed = rans_bnd_torch.o0_tables(
             rans_torch.build_s3(freqs, 12))
         if S != want_S:
@@ -1652,16 +1288,19 @@ def bnd_kernels_vs_plain(np, torch, dev):
             if not np.array_equal(syms[b, :t].reshape(-1), d[:t * 32]):
                 raise AssertionError(f"decode_bnd_o0 S={S}: stream {b} does "
                                      "not round-trip")
-        record("decode_bnd_o0", f"S={S} {'packed' if packed else 'counter'}",
-               _max_err(k_out, p_out), k_ms, p_ms,
-               int((lens // 32).sum()) * 32, _nbytes(*args[:5], *k_out))
+        _record(res, "decode_bnd_o0",
+                f"S={S} {'packed' if packed else 'counter'}",
+                _max_err(k_out, p_out), k_ms, p_ms,
+                _work("decode_bnd_o0", args, k_out, coded),
+                "  (round-trips the sources)")
     # A counts byte 0 too: contexts that never occur have all-zero s3
     # rows, which recover as symbol 0 at f = tot (as in the JAX route)
     for want_A, make in ((6, lambda n: rng.choice(dna, n)),
                          (47, lambda n: qual(n, 36, 46))):
         datas = streams(make)
         for shift in (10, 12):
-            freqs, words, R0, iszs = _o1_words(datas, shift, dev, np, torch)
+            freqs, words, R0, coded, iszs = _o1_words(datas, shift, dev, np,
+                                                      torch)
             tab, alphabet, A, A1, last0 = \
                 rans_bnd_torch.build_o1_dense_tables(
                     rans_bnd_torch.freqs_from_s3(
@@ -1682,14 +1321,10 @@ def bnd_kernels_vs_plain(np, torch, dev):
                     raise AssertionError(
                         f"decode_dense_o1 A={A} shift{shift}: stream {b} "
                         "does not round-trip")
-            record("decode_dense_o1", f"A={A} shift{shift}",
-                   _max_err(k_out, p_out), k_ms, p_ms, int(iszs.sum()) * 32,
-                   _nbytes(*args[:4], *k_out))
-    for name, rows in res.items():
-        bad = [r for r in rows if r[1] != 0]
-        if bad:
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{bad}")
+            _record(res, "decode_dense_o1", f"A={A} shift{shift}",
+                    _max_err(k_out, p_out), k_ms, p_ms,
+                    _work("decode_dense_o1", args, k_out, coded),
+                    "  (round-trips the sources)")
     return res
 
 
@@ -1703,7 +1338,7 @@ def jax_signatures_vs_cpu(np, torch, dev) -> None:
     B, S = 8, 48
     datas = [(np.cumsum(rng.integers(-2, 3, int(rng.integers(3000, 9000))))
               % 40 + 2).astype(np.uint8) for _ in range(B)]
-    freqs, words, R0, lens = _o0_words(datas, dev, np, torch)
+    freqs, words, R0, _, lens = _o0_words(datas, dev, np, torch)
     treal = (lens // 32).astype(np.int32)
     W = words.shape[1]
     words128 = np.zeros((B, (W + 127) // 128 * 128), np.int32)
@@ -1729,7 +1364,7 @@ def jax_signatures_vs_cpu(np, torch, dev) -> None:
              ("decode_walk4v3", four(packed), {"S": S}),
              ("decode_walk4v4", four(packed), {"S": S})]
     o1 = [d[:len(d) // 32 * 32] for d in datas[:4]]
-    f1, w1, R1, iszs = _o1_words(o1, 12, dev, np, torch)
+    f1, w1, R1, _, iszs = _o1_words(o1, 12, dev, np, torch)
     tab1, _, A, A1, last0 = rans_bnd_torch.build_o1_dense_tables(
         rans_bnd_torch.freqs_from_s3(
             rans_torch.build_s3(f1, 12).reshape(4, -1), 12), 12)
@@ -1781,88 +1416,6 @@ def make_corpus(path: str, target_mb: int, np) -> int:
     return total
 
 
-def corrupt_corpus(np, nrec: int, L: int) -> bytes:
-    """A FASTQ of nrec reads of L bp (make_corpus's model, seed SEED + 7)
-    for the corrupt-archive checks."""
-    rng = np.random.default_rng(SEED + 7)
-    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), (nrec, L))
-    q = (np.cumsum(rng.integers(-2, 3, (nrec, L)), axis=1) % 40 + 36
-         ).astype(np.uint8)
-    return b"".join(b"@c%d\n" % k + seq[k].tobytes() + b"\n+\n"
-                    + q[k].tobytes() + b"\n" for k in range(nrec))
-
-
-def _payload_spans(raw: bytes) -> dict:
-    """{"seq"/"qual": (offset, length)} of the first block's section
-    payloads in an FQZ5 v1.1 archive (cuda_driver._split_block's walk)."""
-    import struct
-
-    from fqzcomp5_tpu_torch.utils import varint
-
-    off = 16 + 12                       # magic, index offset; block head
-    (clen,) = struct.unpack_from("<I", raw, off + 5)
-    off += 9 + clen                     # names
-    lstrat = raw[off]
-    off += 1
-    if lstrat > 0:
-        off += varint.get_u32(raw, off)[1]
-    else:
-        off += 4 + struct.unpack_from("<I", raw, off)[0]
-    spans = {}
-    for key in ("seq", "qual"):
-        (clen,) = struct.unpack_from("<I", raw, off + 5)
-        spans[key] = (off + 9, clen)
-        off += 9 + clen
-    return spans
-
-
-def corrupt_archive(np, raw: bytes, seed: int) -> tuple[bytes, str]:
-    """One seeded mutation of a one-block FQZ5 v1.1 archive: (bytes,
-    what).  By seed mod 8: 0, 4 stomp bytes of the block's qual payload,
-    1, 5 of its seq payload, 2 of the first 24 bytes of its seq payload
-    (order byte, sizes, frequency tables); 6 sets the qual payload's
-    output size to 2^32 - 1; each recomputes the block's CRC (and sizes
-    and index offset), so that the mutation reaches the section decoders
-    (tests/test_fuzz_deep.py's _refix).  3 and 7 truncate the archive
-    inside the block."""
-    import struct
-    import zlib
-
-    from fqzcomp5_tpu_torch.utils import varint
-
-    rng = np.random.default_rng(SEED + 100 + seed)
-    bad = bytearray(raw)
-    start = 16
-    end = min(start + 4 + struct.unpack_from("<I", raw, start)[0], len(raw))
-    spans = _payload_spans(raw)
-    kind = seed % 8
-    if kind in (3, 7):
-        cut = int(rng.integers(start + 12, end))
-        return bytes(bad[:cut]), f"truncated at {cut} of {len(raw)}"
-    if kind == 6:
-        off, n = spans["qual"]
-        nb = varint.get_u32(raw, off + 1)[1]
-        size = varint.put_u32(0xFFFFFFFF)
-        bad[off + 1:off + 1 + nb] = size
-        d = len(size) - nb
-        end += d
-        for at, fmt in ((start, "<I"), (off - 4, "<I"), (8, "<Q")):
-            struct.pack_into(fmt, bad, at,
-                             struct.unpack_from(fmt, raw, at)[0] + d)
-        what = "qual payload's output size set to 2^32 - 1"
-    else:
-        sec = ("qual", "seq", "seq")[kind % 4]
-        off, n = spans[sec]
-        n = min(n, 24) if kind == 2 else n
-        pos = sorted(int(p) for p in off + rng.integers(0, n, 1 + seed % 3))
-        for p in pos:
-            bad[p] = (bad[p] + int(rng.integers(1, 256))) & 0xFF
-        what = f"{sec} payload stomped at {pos}"
-    struct.pack_into("<I", bad, start + 8,
-                     zlib.crc32(bytes(bad[start + 12:end])) & 0xFFFFFFFF)
-    return bytes(bad), what
-
-
 def prefix_copy(src: str, dst: str, nbytes: int) -> None:
     """Whole records of src up to about nbytes."""
     with open(src, "rb") as fp:
@@ -1886,51 +1439,37 @@ def same(a: str, b: str) -> None:
         raise AssertionError(f"{a} and {b} differ")
 
 
-def e2e(src: str, nbytes: int, work: str, lvl: str) -> tuple[str, float]:
+def e2e(src: str, work: str, lvl: str) -> str:
     """Encode src at preset lvl through the port's CLI (on the card, its
     default), decode it with the port and with the host engine (-e
-    host), and require both to equal src.  Returns the archive's path
-    and the port's decode seconds."""
+    host), and require both to equal src.  Returns the archive's path."""
     comp = os.path.join(work, f"c{lvl}.fqz5")
     out = os.path.join(work, f"o{lvl}.fastq")
-    t1 = time.monotonic()
     run_cli([lvl, "-V", src, comp])
-    enc_s = time.monotonic() - t1
-    t1 = time.monotonic()
     run_cli(["-d", "-V", comp, out])
-    dec_s = time.monotonic() - t1
     same(src, out)
     os.remove(out)
-    t1 = time.monotonic()
     subprocess.run([sys.executable, "-m", "fqzcomp5_tpu_torch.cli",
                     "-e", "host", "-d", "-V", comp, out], cwd=ROOT,
                    check=True)
-    host_s = time.monotonic() - t1
     same(src, out)
     os.remove(out)
-    csize = os.path.getsize(comp)
-    log(f"e2e {lvl}: {nbytes} -> {csize} bytes; encode {enc_s:.3f} s = "
-        f"{nbytes / enc_s / 1e6:.2f} MB/s, decode {dec_s:.3f} s = "
-        f"{nbytes / dec_s / 1e6:.2f} MB/s; host-engine decode {host_s:.3f} s;"
-        f" both decodes match the source")
-    return comp, dec_s
+    log(f"e2e {lvl}: {os.path.getsize(src)} -> {os.path.getsize(comp)} "
+        "bytes; both decodes match the source")
+    return comp
 
 
-def decode_boundary(src: str, comp: str, work: str) -> float:
+def decode_boundary(src: str, comp: str, work: str) -> None:
     """Decode comp through the port's CLI with FQZ5_DEC_V3=1 (the
-    boundary-table walks) and require it to equal src; returns the
-    decode seconds."""
+    boundary-table walks) and require it to equal src."""
     out = os.path.join(work, "bnd.fastq")
     os.environ["FQZ5_DEC_V3"] = "1"
     try:
-        t1 = time.monotonic()
         run_cli(["-d", "-V", comp, out])
-        dec_s = time.monotonic() - t1
     finally:
         del os.environ["FQZ5_DEC_V3"]
     same(src, out)
     os.remove(out)
-    return dec_s
 
 
 def adaptive_vs_host(src: str, dev) -> None:
@@ -1962,17 +1501,18 @@ def adaptive_vs_host(src: str, dev) -> None:
         f"codecs {host_s:.3f} s; payloads {[len(g) for g in got]} equal")
 
 
-def corrupt_on_card(np, work: str) -> None:
-    """Corrupt -1 and -3 archives (corrupt_archive, seeds 0-7, of a 6.6 MB
-    corrupt_corpus) decoded through the port's CLI on the card, through
-    both table forms, each in its own subprocess with a timeout, eight at
-    a time: each must exit 0, or 1 with ERROR: and no traceback (a
-    kernel's trap, or any other CUDA error, surfaces as a traceback)."""
+def corrupt_on_card(work: str) -> None:
+    """Corrupt -1 and -3 archives (torch_cases.corrupt_archive, seeds 0-7,
+    of a 6.6 MB torch_cases.corrupt_corpus) decoded through the port's
+    CLI on the card, through both table forms, each in its own subprocess
+    with a timeout, eight at a time: each must exit 0, or 1 with ERROR:
+    and no traceback (a kernel's trap, or any other CUDA error, surfaces
+    as a traceback)."""
     from concurrent.futures import ThreadPoolExecutor
 
     src = os.path.join(work, "corrupt.fastq")
     with open(src, "wb") as fp:
-        fp.write(corrupt_corpus(np, 20000, 150))
+        fp.write(torch_cases.corrupt_corpus(20000, 150))
     jobs = []
     for lvl in ("-1", "-3"):
         comp = os.path.join(work, f"corrupt{lvl}.fqz5")
@@ -1980,7 +1520,7 @@ def corrupt_on_card(np, work: str) -> None:
         with open(comp, "rb") as fp:
             raw = fp.read()
         for seed in range(CORRUPT_SEEDS):
-            bad, what = corrupt_archive(np, raw, seed)
+            bad, what = torch_cases.corrupt_archive(raw, seed)
             path = os.path.join(work, f"bad{lvl}_{seed}.fqz5")
             with open(path, "wb") as fp:
                 fp.write(bad)
@@ -2095,8 +1635,8 @@ def counted_kernels() -> dict:
 
 class Counts:
     """The nine kernels' launch counts and the decode batch functions'
-    calls and table bytes, read around each path: reset() just before
-    it, read() just after it.  launches totals every path read (and the
+    calls, read around each path: reset() just before it, read() just
+    after it.  launches totals every path read (and the
     counts of the subprocesses added with take())."""
 
     def __init__(self):
@@ -2111,19 +1651,16 @@ class Counts:
         for fn in self.counted.values():
             fn.launches = 0
         for fn in self.batches.values():
-            fn.calls = fn.s3_bytes = fn.bnd_bytes = 0
+            fn.calls = 0
 
-    def read(self, path: str, need, decoders) -> int:
+    def read(self, path: str, need, decoders) -> None:
         """Counts of the path just run.  Every kernel in need must have
         launched in it, and decoders[batch] wherever the decode handed
-        that batch function a batch.  Returns the table bytes uploaded."""
-        tables = {f"{name} {k}": getattr(fn, k) for name, fn in
-                  self.batches.items() for k in ("s3_bytes", "bnd_bytes")}
+        that batch function a batch."""
         self.take(path, {name: fn.launches for name, fn in
                          self.counted.items()},
                   {name: fn.calls for name, fn in self.batches.items()},
-                  need, decoders, f"; table uploads {tables} bytes")
-        return sum(tables.values())
+                  need, decoders)
 
     def take(self, path: str, got: dict, calls: dict, need, decoders,
              note: str = "") -> None:
@@ -2445,23 +1982,6 @@ def daemon_serve(sock: str, work: str) -> int:
     return daemon.serve(sock, quiet=True)
 
 
-def job_children(server_pid: int) -> list:
-    """The daemon server's job children: its child processes that lead
-    their own process group (daemon._run_child)."""
-    kids = []
-    for name in os.listdir("/proc"):
-        if not name.isdigit():
-            continue
-        try:
-            with open(f"/proc/{name}/stat") as fp:
-                fields = fp.read().rsplit(")", 1)[1].split()
-        except OSError:
-            continue
-        if int(fields[1]) == server_pid and int(fields[2]) == int(name):
-            kids.append(int(name))
-    return kids
-
-
 def gpu_apps() -> list:
     """[(pid, used memory)] of the processes holding a CUDA context, as
     nvidia-smi --query-compute-apps lists them."""
@@ -2518,7 +2038,7 @@ def cancel_on_card(sock: str, server_pid: int, src: str, work: str,
                 raise RuntimeError(f"no CUDA context of the -5 job in "
                                    f"{CANCEL_START_S} s (nvidia-smi "
                                    f"{gpu_apps()}, job {kid})")
-            kids = job_children(server_pid)
+            kids = torch_cases.job_children(server_pid)
             if kids:
                 kid, = kids
                 apps = gpu_apps()
@@ -2841,228 +2361,6 @@ def devtime_phase(src: str, nbytes: int, work: str, comp1: str,
                 os.remove(p)
 
 
-class LaunchShapes:
-    """Inside a with block, records the shape of every rANS decode and
-    model-evolution launch (through a wrapper around the package's
-    function, which it calls unchanged) and logs them at the end with
-    their bounds: B, T, word-row width, lengths (and shift and each
-    stream's alphabet of the s3-LUT order-1 walk, the bucket S of the
-    boundary order-0 walk, A, A1 and the tables' route of the dense
-    order-1 walk) of the decodes; for each evolve walk (evolve_128,
-    evolve_256, tiny_evolve) C, T, the largest count (the longest chain)
-    and the steps of every launch."""
-
-    def __init__(self, what: str):
-        self.what = what
-        self.seen = []
-
-    def __enter__(self):
-        import torch
-        from fqzcomp5_tpu_torch.ops import (model_cuda, rans_cuda_bnd,
-                                            rans_cuda_dec)
-
-        self.saved = ((rans_cuda_dec, "decode_o0", rans_cuda_dec.decode_o0),
-                      (rans_cuda_dec, "decode_o1", rans_cuda_dec.decode_o1),
-                      (rans_cuda_bnd, "decode_bnd_o0",
-                       rans_cuda_bnd.decode_bnd_o0),
-                      (rans_cuda_bnd, "decode_dense_o1",
-                       rans_cuda_bnd.decode_dense_o1),
-                      (model_cuda, "evolve_128", model_cuda.evolve_128),
-                      (model_cuda, "evolve_256", model_cuda.evolve_256),
-                      (model_cuda, "tiny_evolve", model_cuda.tiny_evolve))
-        for mod, name, fn in self.saved:
-            def shim(*a, _fn=fn, _name=name, **kw):
-                # shapes, and the small tensors read afterwards; of an
-                # evolve only the largest count and the steps, read on
-                # the host (its counts kept alive on the card until the
-                # end would count in the path's peak device memory)
-                if _name.startswith("decode"):
-                    seen = (*a[1:], *kw.values())
-                else:
-                    ct = a[1].cpu().to(torch.int64).clamp(0, a[0].shape[1])
-                    seen = (int(ct.max()), int(ct.sum()))
-                self.seen.append((_name, a[0].shape, seen))
-                return _fn(*a, **kw)
-            # the wrapper counts its launches on the module's name, now
-            # the shim's: carried over, and back at the end
-            shim.launches = fn.launches
-            setattr(mod, name, shim)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            fn.launches = getattr(mod, name).launches
-            setattr(mod, name, fn)
-        import torch
-
-        evolves = {}   # walk -> (shapes, steps, bytes)
-        for name, shape, a in self.seen:
-            if name.startswith("decode"):
-                from fqzcomp5_tpu_torch.ops import rans_bnd_torch
-
-                R0, tab = a[:2]
-                tabs = (tab,)
-                if name == "decode_bnd_o0":
-                    f0, t_real, T, S, packed = a[2:7]
-                    tabs = (tab, f0)
-                    alph = f" S={S} {'packed' if packed else 'counter'}"
-                else:
-                    t_real, T = a[2:4]
-                    alph = ""
-                B, W = shape
-                steps = int(t_real.to(torch.int64).clamp(0, T).sum()) * 32
-                # words, states, tables, lengths read; symbols, states,
-                # word counts written
-                b_ms, by = _bound(2 * B * W + _nbytes(R0, *tabs, t_real, R0)
-                                  + B * T * 32 + 4 * B,
-                                  OPS_PER_STEP[name] * steps)
-                if name == "decode_o1":
-                    alph = []
-                    for row in tab:
-                        v = row[row != 0] & 0xFF
-                        alph.append(int(torch.unique(torch.cat(
-                            [v, v.new_zeros(1)])).numel()))
-                    alph = f" shift={a[4]} alphabets={alph}"
-                elif name == "decode_dense_o1":
-                    shift, A, A1, last0 = a[4:8]
-                    # (a package from before the compact tables keeps
-                    # its dense rows in shared memory)
-                    where = (rans_bnd_torch.dense_route(A, shift)
-                             if hasattr(rans_bnd_torch, "dense_route")
-                             else "shared")
-                    alph = (f" shift={shift} A={A} A1={A1} last0={last0} "
-                            f"tables in {where} memory")
-                log(f"launch shape in {self.what}: {name} B={B} T={T} W={W}"
-                    f"{alph} t_real={t_real.tolist()} bound {b_ms:.4f} ms "
-                    f"({by})")
-            else:
-                largest, steps = a
-                shapes, n, nb = evolves.get(name, ([], 0, 0))
-                # symbols read, (cf, tot) written a step; counts (and
-                # max_sym) read a context
-                evolves[name] = (
-                    shapes + [f"{shape[0]}x{shape[1]}({largest},{steps})"],
-                    n + steps, nb + steps * 9 + 8 * shape[0])
-        for name, (shapes, n, nb) in evolves.items():
-            b_ms, by = _bound(nb, OPS_PER_STEP[name] * n)
-            log(f"launch shapes in {self.what}: {name} CxT(largest count,"
-                f"steps) {' '.join(shapes)}; {n} steps, bound of them all "
-                f"{b_ms:.4f} ms ({by})")
-        self.seen = []
-        return False
-
-
-def _merge_seconds(spans) -> float:
-    """Seconds covered by the union of (start_us, end_us) spans."""
-    busy = 0.0
-    end = float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e6
-
-
-def profile_run(src: str, work: str, lvl: str, out_dir: str,
-                decode: bool, boundary: bool = False) -> None:
-    """Encode src at lvl through the port's CLI (and, with decode, decode
-    the archive, through the boundary-table walks with boundary) under
-    cProfile and torch.profiler, profiling the encode or the decode;
-    write both tables to out_dir and print the device's busy time, its
-    idle share, per-kernel device time and the host functions that take
-    the most time."""
-    import cProfile
-    import io
-    import pstats
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(out_dir, exist_ok=True)
-    comp = os.path.join(work, "profile.fqz5")
-    out = os.path.join(work, "profile.fastq")
-    if decode:
-        run_cli(["-e", "cuda", lvl, src, comp])
-        argv = ["-e", "cuda", "-d", comp, out]
-    else:
-        argv = ["-e", "cuda", lvl, src, comp]
-    what = f"{lvl} {'decode' if decode else 'encode'}"
-    if boundary:
-        what += " FQZ5_DEC_V3"
-        os.environ["FQZ5_DEC_V3"] = "1"
-    cp = cProfile.Profile()
-    try:
-        with LaunchShapes(what):
-            t1 = time.monotonic()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as tp:
-                cp.enable()
-                run_cli(argv)
-                cp.disable()
-                torch.cuda.synchronize()
-            wall = time.monotonic() - t1
-    finally:
-        os.environ.pop("FQZ5_DEC_V3", None)
-    if decode:
-        same(src, out)
-        os.remove(out)
-    dev = [e for e in tp.events() if e.device_type == DeviceType.CUDA]
-    busy = _merge_seconds((e.time_range.start, e.time_range.end)
-                          for e in dev)
-    log(f"profile {what}: {os.path.getsize(src)} <-> "
-        f"{os.path.getsize(comp)} bytes; wall {wall:.3f} s (profiled); "
-        f"device busy {busy:.3f} s, idle {100 * (1 - busy / wall):.1f}% "
-        f"({len(dev)} device events)")
-    per = {}
-    for e in dev:
-        n, us = per.get(e.name, (0, 0.0))
-        per[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    log("device time by kernel or copy (s, launches; the 15 longest, then "
-        "the port's other kernels):")
-    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
-    for k, (name, (n, us)) in enumerate(ranked):
-        # the port's kernels live in anonymous namespaces of csrc/*.cu
-        if k < 15 or name.removeprefix("void ").startswith(
-                "(anonymous namespace)::"):
-            log(f"  {us / 1e6:10.3f}  {n:6d}  {name[:90]}")
-    with open(os.path.join(out_dir, "torch_profile.txt"), "w") as fp:
-        fp.write(tp.key_averages().table(sort_by="self_cuda_time_total",
-                                         row_limit=40))
-    buf = io.StringIO()
-    st = pstats.Stats(cp, stream=buf)
-    st.sort_stats("cumulative").print_stats(60)
-    st.sort_stats("tottime").print_stats(40)
-    with open(os.path.join(out_dir, "cprofile.txt"), "w") as fp:
-        fp.write(buf.getvalue())
-    buf = io.StringIO()
-    pstats.Stats(cp, stream=buf).sort_stats("tottime").print_stats(25)
-    log("host functions by own time (cProfile):")
-    log(buf.getvalue())
-    os.remove(comp)
-
-
-def profile_main(np, torch, levels: str, out_dir: str, decode: bool,
-                 boundary: bool) -> int:
-    from fqzcomp5_tpu_torch import engine_cuda
-    from fqzcomp5_tpu_torch.ops import _build
-
-    engine_cuda._lib()
-    _build.lib()
-    torch.zeros(1, device="cuda")  # the CUDA context, outside the profile
-    work = tempfile.mkdtemp(prefix="fqz5_chip_profile_")
-    try:
-        src = os.path.join(work, "in.fastq")
-        make_corpus(src, CORPUS_MB, np)
-        for lvl in levels.split(","):
-            profile_run(src, work, lvl, os.path.join(
-                out_dir, lvl + ("-boundary" if boundary else "")), decode,
-                boundary)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return 0
-
-
 ONLY_PHASES = ("host-adaptive", "daemon", "devtime", "scale")
 
 
@@ -3116,25 +2414,14 @@ def only_main(np, torch, names) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one encode of the corpus instead")
-    ap.add_argument("--level", default="-5",
-                    help="preset(s) of the profiled run, comma-separated")
-    ap.add_argument("--decode", action="store_true",
-                    help="with --profile: profile the decode of the "
-                    "preset's archive instead of the encode; with "
-                    "--walk-times: time only the decode walks")
-    ap.add_argument("--boundary", action="store_true",
-                    help="with --profile --decode: decode through the "
-                    "boundary-table walks (FQZ5_DEC_V3=1)")
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
-                    help="directory for the profile tables")
     ap.add_argument("--walk-times", action="store_true",
                     help="only time the redesigned walks at the main "
                     "path's shapes")
+    ap.add_argument("--decode", action="store_true",
+                    help="with --walk-times: time only the decode walks")
     ap.add_argument("--root", default=ROOT,
-                    help="with --walk-times or --profile: the checkout "
-                    "whose fqzcomp5_tpu_torch is timed")
+                    help="with --walk-times: the checkout whose "
+                    "fqzcomp5_tpu_torch is timed")
     ap.add_argument("--scale", action="store_true",
                     help="only run the scale phase, on every visible card "
                     "(--only scale)")
@@ -3190,13 +2477,9 @@ def main() -> int:
             return 1
         sys.path.insert(0, ROOT)
         return only_main(np, torch, names)
-    if opts.walk_times or opts.profile:
+    if opts.walk_times:
         sys.path.insert(0, os.path.abspath(opts.root))
         from fqzcomp5_tpu_torch.ops import _build
-        if opts.profile:
-            log(f"profile of {os.path.dirname(_build.CSRC)}")
-            return profile_main(np, torch, opts.level, opts.out, opts.decode,
-                                opts.boundary)
         _build.lib()
         log(f"walk times of {os.path.dirname(_build.CSRC)} (nvcc "
             f"{_build.build_seconds:.3f} s)")
@@ -3260,28 +2543,16 @@ def main() -> int:
         for lvl, runs in PATHS:
             counts.reset()
             torch.cuda.reset_peak_memory_stats()
-            with LaunchShapes(lvl):
-                if lvl == "-5":
-                    comp, dec_s = e2e(src5, os.path.getsize(src5), work,
-                                      lvl)
-                else:
-                    comp, dec_s = e2e(src, nbytes, work, lvl)
+            comp = e2e(src5 if lvl == "-5" else src, work, lvl)
             log(f"peak device memory in the {lvl} run: "
                 f"{torch.cuda.max_memory_allocated()} bytes")
-            lut_bytes = counts.read(lvl, runs, {"decode_o0": "decode_o0",
-                                                "decode_o1": "decode_o1"})
+            counts.read(lvl, runs, {"decode_o0": "decode_o0",
+                                    "decode_o1": "decode_o1"})
             if lvl in BOUNDARY:
                 counts.reset()
-                with LaunchShapes(f"{lvl} FQZ5_DEC_V3 decode"):
-                    bnd_s = decode_boundary(src, comp, work)
-                bnd_bytes = counts.read(f"{lvl} FQZ5_DEC_V3 decode",
-                                        [BOUNDARY[lvl]],
-                                        {"decode_o0": "decode_bnd_o0"})
-                log(f"decode {lvl}: s3-LUT walks {dec_s:.3f} s "
-                    f"({nbytes / dec_s / 1e6:.2f} MB/s), tables {lut_bytes} "
-                    f"bytes; boundary-table walks {bnd_s:.3f} s "
-                    f"({nbytes / bnd_s / 1e6:.2f} MB/s), tables {bnd_bytes} "
-                    "bytes; both match the source")
+                decode_boundary(src, comp, work)
+                counts.read(f"{lvl} FQZ5_DEC_V3 decode", [BOUNDARY[lvl]],
+                            {"decode_o0": "decode_bnd_o0"})
             if lvl == "-1":
                 comp1 = comp   # the daemon's and scale phase's reference
             else:
@@ -3311,7 +2582,7 @@ def main() -> int:
         os.remove(comp1)
         phase("scale", t0)
         t0 = time.monotonic()
-        corrupt_on_card(np, work)
+        corrupt_on_card(work)
         phase("corrupt", t0)
     finally:
         for *_, p in cpu_jobs + host_jobs:

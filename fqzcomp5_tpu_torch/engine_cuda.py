@@ -375,8 +375,7 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     "boundary").  With lazy=True, returns a zero-argument finisher: the
     walk is launched now, and the finisher copies the symbols back and
     decodes the <32-byte remainders on the host (from the s3 LUTs).
-    decode_o0_batch.calls counts the batches that reach a walk, .s3_bytes
-    and .bnd_bytes the table bytes each form uploads."""
+    decode_o0_batch.calls counts the batches that reach a walk."""
     _check_tables(tables, out_szs)
     L = _lib()
     B = len(payloads)
@@ -400,9 +399,6 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
                    else "walk_symbols/decode_o0", 32 * int(t_real.sum()))
     if tables == "boundary":
         tab, f0, S, packed = rans_bnd_torch.o0_tables(s3s)
-        decode_o0_batch.bnd_bytes += tab.nbytes + f0.nbytes
-    else:
-        decode_o0_batch.s3_bytes += s3s.nbytes
     parts = []   # (syms, Rf) of each row range, on its device
     for dev, lo, hi in split_rows(device, B):
         args = (_to(words[lo:hi], dev), _to(R0[lo:hi], dev))
@@ -437,10 +433,9 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
                     tables: str = "lut"):
     """Batched order-1 decode (lazy, tables: see decode_o0_batch).
     Streams group by shift.  A "lut" group uploads its full s3 tables
-    (256 << shift u32 per stream, counted in decode_o1_batch.s3_bytes);
-    a "boundary" group whose alphabet has 1 to 64 symbols uploads dense
-    tables (4*A1*(A+1) bytes per stream, counted in .bnd_bytes), and a
-    wider one its s3 tables."""
+    (256 << shift u32 per stream); a "boundary" group whose alphabet has
+    1 to 64 symbols uploads dense tables (4*A1*(A+1) bytes per stream),
+    and a wider one its s3 tables."""
     _check_tables(tables, out_szs)
     L = _lib()
     B = len(payloads)
@@ -476,9 +471,6 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         if dense:
             tab, alphabet, A, A1, last0 = \
                 rans_bnd_torch.build_o1_dense_tables(freqs, shift)
-            decode_o1_batch.bnd_bytes += tab.nbytes
-        else:
-            decode_o1_batch.s3_bytes += s3s.nbytes
         devtimer.count("walk_symbols/decode_dense_o1" if dense
                        else "walk_symbols/decode_o1", 32 * int(t_real.sum()))
         parts = []   # (syms, Rf, ptrf) of each row range, on its device
@@ -538,8 +530,4 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
 
 
 decode_o0_batch.calls = 0
-decode_o0_batch.s3_bytes = 0
-decode_o0_batch.bnd_bytes = 0
 decode_o1_batch.calls = 0
-decode_o1_batch.s3_bytes = 0
-decode_o1_batch.bnd_bytes = 0

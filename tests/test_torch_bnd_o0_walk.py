@@ -8,7 +8,7 @@ slot from a stream's boundary entries (the selected entry's F, and
 rans_bnd_torch.bnd_o0_slot_table / decode_bnd_o0_compact mirror that
 table and walk.  The kernel does not run here; chip_smoke.py holds it on
 the card against the same plain walk on these cases
-(chip_smoke.bnd_o0_case, BND_O0_CASES, bnd_o0_variants).
+(torch_cases.bnd_o0_case, BND_O0_CASES, bnd_o0_variants).
 """
 
 import numpy as np
@@ -17,16 +17,15 @@ import torch
 
 from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
 from fqzcomp5_tpu_torch.ops import rans_bnd_dec, rans_bnd_torch
+from tests import torch_cases
 from tests.test_torch_bnd_decode import _four_args, _o0_case
 
-import chip_smoke
-
-T_STEPS = chip_smoke.EDGE_T
+T_STEPS = torch_cases.EDGE_T
 
 
 def _case(shift, S, packed):
     rng = np.random.default_rng(1000 * shift + S + packed)
-    return rng, chip_smoke.bnd_o0_case(np, rng, S, shift, packed)
+    return rng, torch_cases.bnd_o0_case(rng, S, shift, packed)
 
 
 def _both(words, R0, tab, f0, t_real, S, packed, shift, T=T_STEPS):
@@ -44,7 +43,7 @@ def _both(words, R0, tab, f0, t_real, S, packed, shift, T=T_STEPS):
     return got
 
 
-@pytest.mark.parametrize("shift,S,packed", chip_smoke.BND_O0_CASES)
+@pytest.mark.parametrize("shift,S,packed", torch_cases.BND_O0_CASES)
 def test_bnd_o0_compact_walk_equals_plain(shift, S, packed):
     """Round trips (a single-symbol stream among them, f0 = tot), ragged
     lengths with a 0 (the rows past t_real hold 0), word rows cut short."""
@@ -61,17 +60,17 @@ def test_bnd_o0_compact_walk_equals_plain(shift, S, packed):
           packed, shift)
 
 
-@pytest.mark.parametrize("variant", chip_smoke.BND_O0_VARIANTS)
-@pytest.mark.parametrize("shift,S,packed", chip_smoke.BND_O0_CASES)
+@pytest.mark.parametrize("variant", torch_cases.BND_O0_VARIANTS)
+@pytest.mark.parametrize("shift,S,packed", torch_cases.BND_O0_CASES)
 def test_bnd_o0_slot_table_edge_tables(shift, S, packed, variant):
     """Tables no encoder makes (rows below tot, boundaries out of order,
     inconsistent F fields, random entries, f0 = 0 and tot): every slot's
     (sym, F, m - C) is select_entry's at that slot, and the compact walk
     equals the plain walk."""
     rng, (words, R0, tab, f0, _, freqs) = _case(shift, S, packed)
-    vs = dict((k, v) for k, *v in chip_smoke.bnd_o0_variants(
-        np, rng, freqs, tab, S, shift, packed))
-    assert list(vs) == list(chip_smoke.BND_O0_VARIANTS)
+    vs = dict((k, v) for k, *v in torch_cases.bnd_o0_variants(
+        rng, freqs, tab, S, shift, packed))
+    assert list(vs) == list(torch_cases.BND_O0_VARIANTS)
     tab, f0 = vs[variant]
     tot = 1 << shift
     m = torch.arange(tot).view(1, tot)

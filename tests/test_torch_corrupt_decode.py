@@ -20,9 +20,8 @@ import torch
 
 from fqzcomp5_tpu_torch import cli, cuda_driver
 from fqzcomp5_tpu_torch.drivers import Timings, make_fastq_writer
+from tests import torch_cases
 from tests.test_fuzz_deep import Deadline
-
-import chip_smoke
 
 CPU = torch.device("cpu")
 # the errors cli.main turns into ERROR: and exit 1 when it reads an
@@ -37,7 +36,7 @@ def archives(tmp_path_factory):
     with random-walk qualities, encoded by the port on the CPU."""
     d = tmp_path_factory.mktemp("corrupt")
     src = d / "in.fastq"
-    src.write_bytes(chip_smoke.corrupt_corpus(np, 400, 100))
+    src.write_bytes(torch_cases.corrupt_corpus(400, 100))
     out = {}
     for lvl in ("-1", "-3"):
         arg, _, _ = cli.parse_args([lvl, "-V"])
@@ -74,7 +73,7 @@ def test_archive_reaches_the_walks(archives, lvl, tables):
 @pytest.mark.parametrize("lvl", ["-1", "-3"])
 def test_corrupt_archive_decode_ends(archives, lvl, tables, seed):
     src, raw = archives[lvl]
-    bad, what = chip_smoke.corrupt_archive(np, raw, seed)
+    bad, what = torch_cases.corrupt_archive(raw, seed)
     assert bad != raw
     with Deadline(60):
         try:

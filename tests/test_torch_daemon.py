@@ -28,9 +28,9 @@ import time
 
 import pytest
 
-import chip_smoke
 from fqzcomp5_tpu import daemon as jdaemon
 from fqzcomp5_tpu_torch import cli, daemon, launcher
+from tests import torch_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 START_S = 90
@@ -465,7 +465,7 @@ def test_client_death_cancels_the_job(tmp_path, data_dir, client):
             cp.stdin.write(sample[:len(sample) // 2])
             cp.stdin.flush()
             deadline = time.monotonic() + 60
-            while not (kids := chip_smoke.job_children(p.pid)):
+            while not (kids := torch_cases.job_children(p.pid)):
                 assert cp.poll() is None, err.read_bytes()
                 assert time.monotonic() < deadline, "the job never started"
                 time.sleep(0.05)
@@ -480,7 +480,7 @@ def test_client_death_cancels_the_job(tmp_path, data_dir, client):
             size = out.stat().st_size
             time.sleep(0.5)
             assert out.stat().st_size == size
-            assert chip_smoke.job_children(p.pid) == []
+            assert torch_cases.job_children(p.pid) == []
         finally:
             if cp.poll() is None:
                 cp.kill()

@@ -19,15 +19,14 @@ import torch
 
 from fqzcomp5_tpu.ops import rans_pallas_dec as rpd
 from fqzcomp5_tpu_torch.ops import rans_bnd_torch, rans_torch
+from tests import torch_cases
 from tests.test_torch_bnd_decode import _words128
 
-import chip_smoke
-
-T_STEPS = chip_smoke.EDGE_T
+T_STEPS = torch_cases.EDGE_T
 
 
 def _dense_case(rng, A, shift, zero, B=3, T=T_STEPS):
-    return chip_smoke.dense_case(np, rng, A, shift, zero, B=B, T=T)
+    return torch_cases.dense_case(rng, A, shift, zero, B=B, T=T)
 
 
 def _both(words, R0, tab, t_real, shift, A, A1, last0, T=T_STEPS):
@@ -45,7 +44,7 @@ def _both(words, R0, tab, t_real, shift, A, A1, last0, T=T_STEPS):
     return got
 
 
-@pytest.mark.parametrize("shift,A,zero,route", chip_smoke.DENSE_CASES)
+@pytest.mark.parametrize("shift,A,zero,route", torch_cases.DENSE_CASES)
 def test_dense_compact_walk_equals_plain(shift, A, zero, route):
     rng = np.random.default_rng(1000 * shift + A)
     words, R0, tab, A1, last0, sym, _ = _dense_case(rng, A, shift, zero)
@@ -88,17 +87,17 @@ def test_dense_compact_tables_rows():
     _both(words, R0, zero, full, 10, 7, A1, last0)
 
 
-@pytest.mark.parametrize("shift,A,zero,route", chip_smoke.DENSE_CASES)
+@pytest.mark.parametrize("shift,A,zero,route", torch_cases.DENSE_CASES)
 def test_dense_boundaries_out_of_order(shift, A, zero, route):
-    """Rows whose boundaries do not rise (chip_smoke.scramble_boundaries):
+    """Rows whose boundaries do not rise (torch_cases.scramble_boundaries):
     the slot runs still cover every slot once, each slot taking the last
     entry whose boundary is at most it (0 where none is), the entry the
     plain walk selects; in the packed form the compact walk then equals
     the plain walk on any such table."""
     rng = np.random.default_rng(1000 * shift + A)
     words, R0, tab, A1, last0, _, _ = _dense_case(rng, A, shift, zero)
-    bad = chip_smoke.scramble_boundaries(np, np.random.default_rng(A1),
-                                         tab, A, A1)
+    bad = torch_cases.scramble_boundaries(np.random.default_rng(A1), tab, A,
+                                          A1)
     tot = 1 << shift
     E = bad.view(np.uint32).reshape(3, A1, A + 1).astype(np.int64)
     bnd = E[..., 1:] & (0x1FFF if A <= 64 else 0x3FFF)
@@ -164,7 +163,7 @@ def test_o0_staged_walk_equals_plain(cut):
     single-symbol stream (its f = 4096 wrapped to 0 in s3) and, with cut,
     word rows cut short."""
     T = T_STEPS
-    words, R0, s3, plane = chip_smoke.o0_case(np, np.random.default_rng(7))
+    words, R0, s3, plane = torch_cases.o0_case(np.random.default_rng(7))
     assert (s3[1].view(np.uint32) >> 20 == 0).all()
     if cut:
         words = words[:, :max(1, words.shape[1] // 4)]

@@ -9,7 +9,7 @@ evolve_kernel emits runs of the symbol in slot 0 in closed form;
 fqz_model_torch.evolve_prefix_mirror mirrors that on top of the running
 prefix.  Neither kernel runs here; chip_smoke.py holds the kernels
 themselves against the plain walks on the card, on these cases too
-(chip_smoke.tiny_window_cases / run_window_cases build them for both).
+(torch_cases.tiny_window_cases / run_window_cases build them for both).
 """
 
 import jax.numpy as jnp
@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from fqzcomp5_tpu.ops import fqz_model_jax
 from fqzcomp5_tpu_torch.ops import fqz_model_torch
+from tests import torch_cases
 
 
 def _jax_equal(cf, tot, want, counts):
@@ -32,9 +32,9 @@ def _jax_equal(cf, tot, want, counts):
         assert np.array_equal(g[m], np.asarray(w)[:, :T][m])
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.tiny_window_cases(np)))
+@pytest.mark.parametrize("name", list(torch_cases.tiny_window_cases()))
 def test_tiny_window_mirror_equals_plain_and_jax(name):
-    sp, counts, nsym = chip_smoke.tiny_window_cases(np)[name]
+    sp, counts, nsym = torch_cases.tiny_window_cases()[name]
     sp = sp.astype(np.uint8)
     counts = counts.astype(np.int32)
     cf, tot = fqz_model_torch.tiny_window_mirror(sp, counts, nsym)
@@ -50,7 +50,7 @@ def test_tiny_window_mirror_equals_plain_and_jax(name):
 def test_tiny_halving_cases_reach_every_lane():
     """The halving cases put a first halving at each lane 0-31 of a
     window (the mirror's own rule: pre-bump tot reaching 255)."""
-    cases = chip_smoke.tiny_window_cases(np)
+    cases = torch_cases.tiny_window_cases()
     for nsym in (4, 2):
         sp = cases[f"halving_each_lane_nsym{nsym}"][0]
         lanes = set()
@@ -60,9 +60,9 @@ def test_tiny_halving_cases_reach_every_lane():
         assert lanes == set(range(32))
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.run_window_cases(np)))
+@pytest.mark.parametrize("name", list(torch_cases.run_window_cases()))
 def test_evolve_run_window_mirror_equals_plain_and_jax(name):
-    sp, counts, ms = chip_smoke.run_window_cases(np)[name]
+    sp, counts, ms = torch_cases.run_window_cases()[name]
     sp = sp.astype(np.uint8)
     counts = counts.astype(np.int32)
     ms = ms.astype(np.int32)
@@ -82,7 +82,7 @@ def test_halving_inside_run_case_holds_runs_and_halvings():
     """The run-length rows of the halving case are runs in slot 0 (cum 0)
     almost throughout, with halvings inside the runs, so the closed form
     and its cut are what the case walks."""
-    sp, counts, ms = chip_smoke.run_window_cases(np)["halving_inside_run"]
+    sp, counts, ms = torch_cases.run_window_cases()["halving_inside_run"]
     sp = sp.astype(np.uint8)
     counts = counts.astype(np.int32)
     cf, tot = fqz_model_torch.evolve_prefix_mirror(sp, counts,
