@@ -16,9 +16,10 @@ jobs at once:
   W256  AdaptiveModel<256>  fqz length bytes, seq      model_cuda.evolve_256
                             run-length and literal
 
-From the sort on, pass 2's events stay on the device: count buckets'
-planes are built there and the packed triples scattered into event
-order (``fqz_model_torch.DevTriples``).  Pass 3 keeps each job's encode
+From pass 1 on, the events stay on the device: each job's stream is
+merged there from its contexts (``Prep``), count buckets' planes are
+built there and the packed triples scattered into event order
+(``fqz_model_torch.DevTriples``).  Pass 3 keeps each job's encode
 events (a seq job's both-strands update-only events are dropped) and
 walks every job's range coder in chunks of CHUNK_T steps with the state
 carried, copying back only the bytes.  Payloads are byte-identical to
@@ -32,6 +33,7 @@ falls back to the host codecs: a device error propagates.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,15 +65,31 @@ def _batch_budget_bytes() -> int:
     return int(os.environ.get("FQZ5_ADAPTIVE_BATCH_MB", "128")) << 20
 
 
-def _prep_job(job, device: torch.device):
-    """Expand one job into (header, fam, mid, sym, enc_mask, meta) host
-    arrays, or None for a job the fqz codec declines.  'fqz' jobs carry
-    a native wire header; 'fqz_params' jobs, whose parameters and
-    selectors were picked already, carry none."""
+class Prep(NamedTuple):
+    """One job after pass 1: its wire header (b"" but for 'fqz' jobs),
+    its event stream as tensors on the batch's first device (fam int8,
+    mid int64, sym int32), enc, the bool mask of the events pass 3
+    encodes (None: all of them), n_enc, their number, and meta, an fqz
+    job's (max_sym + 1, max_sel + 1) or None."""
+    hdr: bytes
+    fam: torch.Tensor
+    mid: torch.Tensor
+    sym: torch.Tensor
+    enc: torch.Tensor | None
+    n_enc: int
+    meta: tuple[int, int] | None
+
+
+def _prep_job(job, device: torch.device) -> Prep | None:
+    """Pass 1 of one job on `device`, or None for a job the fqz codec
+    declines.  'fqz' jobs carry a native wire header; 'fqz_params' jobs,
+    whose parameters and selectors were picked already, carry none."""
     if job[0] in ("fqz", "fqz_params"):
         if job[0] == "fqz":
             _, qual, lens, flags, seq_buf, strat = job
-            hdr, P, sels = prepare_fqz(qual, lens, flags, seq_buf, strat)
+            with devtimer.span("adaptive/pass1/params"):
+                hdr, P, sels = prepare_fqz(qual, lens, flags, seq_buf,
+                                           strat)
         else:
             _, qual, lens, sels, P, seq_buf = job
             hdr = b""
@@ -83,17 +101,20 @@ def _prep_job(job, device: torch.device):
         la = np.ascontiguousarray(lens, np.uint32)
         mids, syms, _ = build_stream(qual, la, sels, P, device,
                                      seq=seq_buf)
-        is_w256 = (mids >= MID_LEN0) & (mids < MID_SEL)
-        fam = np.where(is_w256, F_W256, F_N128).astype(np.int8)
-        enc = np.ones(len(mids), bool)
+        with devtimer.span("adaptive/pass1/merge"):
+            is_w256 = (mids >= MID_LEN0) & (mids < MID_SEL)
+            fam = torch.where(is_w256, F_W256, F_N128).to(torch.int8)
         meta = (int(P.max_sym) + 1, int(P.max_sel) + 1)
-        return hdr, fam, mids, syms, enc, meta
+        return Prep(hdr, fam, mids, syms, None, len(mids), meta)
     _, seq_buf, lens, both, slevel = job
-    sfam, mid, sym, upd = build_events(seq_buf, lens, both, slevel, device)
-    fam = np.where(sfam == FAM_SEQ, F_T4,
-                   np.where(sfam == FAM_STATE, F_T2,
-                            F_W256)).astype(np.int8)
-    return b"", fam, mid, sym, ~upd, None
+    sfam, mid, sym, upd, n_upd = build_events(seq_buf, lens, both, slevel,
+                                              device)
+    with devtimer.span("adaptive/pass1/merge"):
+        fam = torch.where(sfam == FAM_SEQ, F_T4,
+                          torch.where(sfam == FAM_STATE, F_T2,
+                                      F_W256)).to(torch.int8)
+    return Prep(b"", fam, mid, sym, ~upd if n_upd else None,
+                len(mid) - n_upd, None)
 
 
 def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
@@ -120,20 +141,18 @@ def _walk(walk, counter: str, nsym: int = 0):
 def _evolve_families(preps, dev: DevTriples,
                      device: torch.device | Mesh) -> None:
     """Pass 2 for the whole batch: the jobs' events (the `fam`, `mid`,
-    `sym` arrays of _prep_job's tuples, in job order) go up once to
-    `device`'s first device and are grouped there by family, job and
-    model id in one sort; each family's rows are evolved in count
-    buckets on `device` (a device, or a Mesh over which each bucket
-    plane's rows split) and the triples scattered to event order in
-    `dev`.  The host reads back only the families' bounds, the N128
-    contexts' keys (for their alphabets) and a few numbers a bucket."""
+    `sym` tensors of their Preps, in job order, on `device`'s first
+    device) are grouped there by family, job and model id in one sort;
+    each family's rows are evolved in count buckets on `device` (a
+    device, or a Mesh over which each bucket plane's rows split) and the
+    triples scattered to event order in `dev`.  The host reads back only
+    the families' bounds, the N128 contexts' keys (for their alphabets)
+    and a few numbers a bucket."""
     first = first_device(device)
     with devtimer.span("adaptive/group"):
-        key = torch.cat([
-            (devtimer.put(p[1], first).to(torch.int64) << FAM_SHIFT)
-            + devtimer.put(p[2], first) + j * JOB_OFF
-            for j, p in enumerate(preps)])
-        sym = torch.cat([devtimer.put(p[3], first) for p in preps])
+        key = torch.cat([(p.fam.to(torch.int64) << FAM_SHIFT) + p.mid
+                         + j * JOB_OFF for j, p in enumerate(preps)])
+        sym = torch.cat([p.sym for p in preps])
         uniq, g = fqz_model_torch.group_resident(key, sym)
         del key, sym
         # family F's rows are a run of the sorted keys; N128 rows take
@@ -146,7 +165,7 @@ def _evolve_families(preps, dev: DevTriples,
         alphabet = torch.full((C,), 256, dtype=torch.int32, device=first)
         alphabet[b128] = devtimer.put(_row_alphabets(
             devtimer.get(uniq[b128]) - (F_N128 << FAM_SHIFT),
-            [p[5] for p in preps]), first)
+            [p.meta for p in preps]), first)
         # each row's index into runs below
         which = torch.full((C,), 4, dtype=torch.int32, device=first)
         which[:bounds[F_T2]] = 0
@@ -270,21 +289,22 @@ def _encode_chunk(jobs, device: torch.device | Mesh) -> list[bytes | None]:
     if not live:
         return outs
     preps = [preps[k] for k in live]
-    total = sum(len(p[2]) for p in preps)
+    total = sum(len(p.mid) for p in preps)
     devtimer.count("pass2_events", total)
-    enc = np.concatenate([p[4] for p in preps])
 
     with devtimer.span("adaptive/evolve"):
         dev = DevTriples(total, first)
         _evolve_families(preps, dev, device)
     with devtimer.span("adaptive/rc"):
         cf, tot = dev.cf, dev.tot
-        if not enc.all():
-            keep = torch.from_numpy(enc).to(first)
+        if any(p.enc is not None for p in preps):
+            keep = torch.cat([torch.ones(len(p.mid), dtype=torch.bool,
+                                         device=first)
+                              if p.enc is None else p.enc for p in preps])
             cf, tot = cf[keep], tot[keep]
-        n_enc = np.array([int(p[4].sum()) for p in preps], np.int64)
+        n_enc = np.array([p.n_enc for p in preps], np.int64)
         starts = np.concatenate(([0], np.cumsum(n_enc)[:-1]))
         payloads = rc_walk(cf, tot, starts, n_enc, device)
     for k, p, pay in zip(live, preps, payloads):
-        outs[k] = p[0] + pay
+        outs[k] = p.hdr + pay
     return outs

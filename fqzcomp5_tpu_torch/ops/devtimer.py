@@ -237,8 +237,11 @@ def spans() -> list:
 
 
 def put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on device (a timed upload when enabled)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    """Host array -> tensor on device (a timed upload when enabled).  A
+    read-only array (one over a bytes object) is copied first: torch
+    takes no read-only memory."""
+    arr = np.ascontiguousarray(arr)
+    t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     if not enabled:
         return t.to(device)
     device = torch.device(device)

@@ -9,7 +9,8 @@ block as one batch of torch ops, on whatever device its tensors lie.
 The parameter tables come from the native parameter picker
 (``fqz5_fqz_prepare``'s blob).  ``FqzParams.parse`` is a copy of the JAX
 package's numpy parser, which cannot be imported without importing jax;
-``params_to_torch`` moves the tables the walk reads to a device.
+``params_to_torch`` moves the tables the walk reads to a device
+(through ``devtimer.put``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from fqzcomp5_tpu_torch.ops import devtimer
 
 K_CTX_MASK = (1 << 16) - 1
 M32 = 0xFFFFFFFF
@@ -94,10 +97,13 @@ def params_to_torch(P: FqzParams, device: torch.device | str
                     ) -> dict[str, torch.Tensor]:
     """The tables compute_contexts reads, as int64 tensors on `device`:
     qmap/qtab/dtab (P, 256), ptab (P, 1024) and the per-parameter
-    scalars (P,) of FqzParams."""
-    out = {k: torch.from_numpy(getattr(P, k).astype(np.int64)).to(device)
-           for k in _TABLES + _SCALARS}
-    return out
+    scalars (P,) of FqzParams, uploaded together in one transfer."""
+    arrs = [getattr(P, k) for k in _TABLES + _SCALARS]
+    flat = devtimer.put(np.concatenate([a.reshape(-1) for a in arrs])
+                        .astype(np.int64), device)
+    parts = flat.split([a.size for a in arrs])
+    return {k: t.view(a.shape)
+            for k, a, t in zip(_TABLES + _SCALARS, arrs, parts)}
 
 
 def compute_contexts(quals: torch.Tensor, lens: torch.Tensor,

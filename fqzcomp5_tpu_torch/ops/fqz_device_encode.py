@@ -7,10 +7,10 @@ every quality byte's model context on the device
 (``fqz_ctx_torch.compute_contexts``); ``build_stream`` merges the
 per-record overhead symbols (selector, four length bytes, duplicate
 flag; native/fqzqual.cpp:698-756) with the quality symbols into one
-(model id, symbol) stream in the native encoder's order.  Passes 2 and
-3 run in ``adaptive_batch``; ``fqz_compress_device`` and
-``encode_payload`` encode one section through it (the host driver's
-per-block route).
+(model id, symbol) stream in the native encoder's order, on the device
+too: the host works only per record.  Passes 2 and 3 run in
+``adaptive_batch``; ``fqz_compress_device`` and ``encode_payload``
+encode one section through it (the host driver's per-block route).
 """
 
 from __future__ import annotations
@@ -31,21 +31,7 @@ MID_SEL = MID_LEN0 + 4
 MID_DUP = MID_SEL + 1
 
 
-def _dup_flags(quals: np.ndarray, lens: np.ndarray) -> np.ndarray:
-    """dup[r] = record r byte-equals record r-1 (fqzqual.cpp:738-745)."""
-    nrec = len(lens)
-    dup = np.zeros(nrec, bool)
-    ends = np.cumsum(lens.astype(np.int64))
-    starts = ends - lens
-    for r in range(1, nrec):
-        if lens[r] == lens[r - 1]:
-            a = quals[starts[r - 1]:ends[r - 1]]
-            b = quals[starts[r]:ends[r]]
-            dup[r] = bool((a == b).all())
-    return dup
-
-
-_BASE_LUT = np.zeros(256, np.int64)  # fqzqual.cpp:195-206
+_BASE_LUT = np.zeros(256, np.uint8)  # fqzqual.cpp:195-206
 for _i, _cs in enumerate((b"Cc", b"Gg", b"TtUu")):
     for _c in _cs:
         _BASE_LUT[_c] = _i + 1
@@ -62,12 +48,25 @@ def _pad_rows(flat: torch.Tensor, lens: torch.Tensor, L: int, fill):
     return plane, mask
 
 
+def _dup_rows(quals2d: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """dup[r] = record r byte-equals record r-1 (fqzqual.cpp:738-745), on
+    the plane's device: rows of equal length are equal past it too (both
+    hold the pad)."""
+    dup = torch.zeros(len(lens), dtype=torch.bool, device=lens.device)
+    dup[1:] = (lens[1:] == lens[:-1]) & (quals2d[1:] == quals2d[:-1]).all(1)
+    return dup
+
+
 def build_stream(qual: bytes, lens, sels, P: fqz_ctx_torch.FqzParams,
                  device: torch.device, seq: bytes | None = None):
     """Merge overhead + quality symbols into one (model_id, symbol)
-    stream in the native encoder's order, with pass 1 on `device`.
-    Returns (mids int64, syms int32, n_overhead) numpy arrays.  seq
-    enables the kGUseSeq base-conditioned contexts (bbits/bloc/boff)."""
+    stream in the native encoder's order, on `device`: pass 1's contexts
+    are computed there and the stream written there from them.  Returns
+    (mids int64, syms int32) tensors on `device` and n_overhead.  seq
+    enables the kGUseSeq base-conditioned contexts (bbits/bloc/boff).
+
+    The host works per record (parameters, which overhead events each
+    record emits, offsets); the device per symbol."""
     qa = np.frombuffer(qual, np.uint8)
     lens = np.asarray(lens, np.uint32)
     sels = np.asarray(sels, np.uint32)
@@ -79,95 +78,118 @@ def build_stream(qual: bytes, lens, sels, P: fqz_ctx_torch.FqzParams,
     do_sel = P.do_sel.astype(bool)
     do_dedup = P.do_dedup.astype(bool)
     fixed_len = P.fixed_len.astype(bool)
-    dup = (_dup_flags(qa, lens)
-           if do_dedup.any() else np.zeros(nrec, bool))
     ends = np.cumsum(lens.astype(np.int64))
     starts = ends - lens
 
-    # pass 1 on the device: per-byte contexts for every record.  The
-    # pad is a symbol the block holds, so that a stored quality map
-    # (which maps only those) keeps the padded entries' lookups in
-    # range; what they compute is masked out.
+    # pass 1: per-byte contexts for every record.  The pad is a symbol
+    # the block holds, so that a stored quality map (which maps only
+    # those) keeps the padded entries' lookups in range; what they
+    # compute is masked out.
     L = int(lens.max()) if nrec else 0
     devtimer.count("pass1_cells", nrec * L)
     devtimer.count("pass1_symbols", len(qa))
-    lens_d = torch.from_numpy(lens.astype(np.int64)).to(device)
-    quals2d, mask = _pad_rows(torch.from_numpy(qa.copy()).to(device),
-                              lens_d, L, int(qa[0]) if len(qa) else 0)
-    seqkw = {}
-    if seq is not None and P.bbits.any():
-        codes = _BASE_LUT[np.frombuffer(seq, np.uint8)]
-        boff_r = P.boff[pidx].astype(np.int64)
-        # bases[r, k] = code of seq[start_r + boff_r + k] while
-        # k < len_r - boff_r, else 0
-        nb = np.maximum(lens.astype(np.int64) - boff_r, 0)
-        codes_d = torch.from_numpy(codes).to(device)
-        src = (torch.from_numpy(starts + boff_r).to(device)[:, None]
-               + torch.arange(L, device=device)[None, :])
-        inb = (torch.arange(L, device=device)[None, :]
-               < torch.from_numpy(nb).to(device)[:, None])
-        bases = torch.where(inb, codes_d[src.clamp(max=max(len(codes) - 1,
-                                                           0))], 0)
-        # native seeds from seq[off+b] for ALL b < boff, even when the
-        # record is shorter than boff (it reads into the next record's
-        # bases in the concatenated buffer) -- native/fqzqual.cpp:727.
-        # Mirror that exactly; clamp only at the end of the whole
-        # buffer (the one case native leaves undefined).
-        seq0 = np.zeros(nrec, np.int64)
-        for k in range(int(boff_r.max(initial=0))):
-            upd = k < boff_r
-            bc = codes[np.minimum(starts + k, len(codes) - 1)]
-            seq0 = np.where(upd, (seq0 << 2) | bc, seq0)
-        seqkw = dict(bases=bases, seq0=torch.from_numpy(seq0).to(device))
-    cj, qj = fqz_ctx_torch.compute_contexts(
-        quals2d, lens_d, torch.from_numpy(pidx).to(device),
-        torch.from_numpy(sels.astype(np.int64)).to(device),
-        fqz_ctx_torch.params_to_torch(P, device), **seqkw)
-    # in-record entries in row-major order are the stream order
-    ctx_f = cj[mask].cpu().numpy()
-    qm_f = qj[mask].cpu().numpy()
+    with devtimer.span("adaptive/pass1/walk"):
+        rec = devtimer.put(np.stack([lens.astype(np.int64), pidx,
+                                     sels.astype(np.int64)]), device)
+        lens_d, pidx_d, sels_d = rec
+        quals2d, mask = _pad_rows(devtimer.put(qa, device), lens_d, L,
+                                  int(qa[0]) if len(qa) else 0)
+        seqkw = {}
+        if seq is not None and P.bbits.any():
+            seqkw = _seq_planes(np.frombuffer(seq, np.uint8), starts,
+                                P.boff[pidx].astype(np.int64), lens, L,
+                                device)
+        cj, qj = fqz_ctx_torch.compute_contexts(
+            quals2d, lens_d, pidx_d, sels_d,
+            fqz_ctx_torch.params_to_torch(P, device), **seqkw)
 
-    # vectorised merge: per-record event counts -> prefix offsets ->
-    # scatter each event class into its slots (the encoder tests
-    # do_sel on the PREVIOUS record's pm, fqzqual.cpp:700)
-    prev_p = np.concatenate(([0], pidx[:-1]))
-    sel_emit = do_sel[prev_p] | multi
-    len_emit = ~fixed_len[pidx]
-    if nrec:
-        len_emit[0] = True  # st.first_len
-    devtimer.count("len_events", 4 * int(len_emit.sum()))
-    dup_emit = do_dedup[pidx]
-    qual_cnt = np.where(dup, 0, lens.astype(np.int64))
-    per_rec = (sel_emit + 4 * len_emit + dup_emit).astype(np.int64) \
-        + qual_cnt
-    offs = np.concatenate(([0], np.cumsum(per_rec)))
-    w = int(offs[-1])
-    mids = np.empty(w, np.int64)
-    syms = np.empty(w, np.int32)
+    with devtimer.span("adaptive/pass1/merge"):
+        # per record on the host: event counts -> prefix offsets (the
+        # encoder tests do_sel on the PREVIOUS record's pm,
+        # fqzqual.cpp:700)
+        dup_d = None
+        dup = np.zeros(nrec, bool)
+        if do_dedup.any():
+            dup_d = _dup_rows(quals2d, lens_d)
+            dup = devtimer.get(dup_d)
+        prev_p = np.concatenate(([0], pidx[:-1]))
+        sel_emit = do_sel[prev_p] | multi
+        len_emit = ~fixed_len[pidx]
+        if nrec:
+            len_emit[0] = True  # st.first_len
+        devtimer.count("len_events", 4 * int(len_emit.sum()))
+        dup_emit = do_dedup[pidx]
+        qual_cnt = np.where(dup, 0, lens.astype(np.int64))
+        per_rec = (sel_emit + 4 * len_emit + dup_emit).astype(np.int64) \
+            + qual_cnt
+        offs = np.concatenate(([0], np.cumsum(per_rec)))
+        w = int(offs[-1])
+        n_qual = int(qual_cnt.sum())
+        devtimer.count("merge_events", w)
 
-    pos = offs[:-1].copy()
-    ridx = np.flatnonzero(sel_emit)
-    mids[pos[ridx]] = MID_SEL
-    syms[pos[ridx]] = sels[ridx]
-    pos += sel_emit
-    ridx = np.flatnonzero(len_emit)
-    for k in range(4):
-        mids[pos[ridx] + k] = MID_LEN0 + k
-        syms[pos[ridx] + k] = (lens[ridx].astype(np.int64)
-                               >> (8 * k)) & 0xFF
-    pos += 4 * len_emit
-    ridx = np.flatnonzero(dup_emit)
-    mids[pos[ridx]] = MID_DUP
-    syms[pos[ridx]] = dup[ridx]
-    pos += dup_emit
-    # quality bytes: each kept record's bytes land as one run at its pos
-    keep = np.repeat(~dup, lens)
-    tgt = (np.repeat(pos - starts, lens)
-           + np.arange(len(qa), dtype=np.int64))[keep]
-    mids[tgt] = ctx_f[keep]
-    syms[tgt] = qm_f[keep]
-    n_qual = int(qual_cnt.sum())
+        # the overhead events, (position, model id, symbol) a column
+        pos = offs[:-1].copy()
+        ev = []
+        ridx = np.flatnonzero(sel_emit)
+        ev.append(np.stack([pos[ridx], np.full(len(ridx), MID_SEL),
+                            sels[ridx]]))
+        pos += sel_emit
+        ridx = np.flatnonzero(len_emit)
+        for k in range(4):
+            ev.append(np.stack([pos[ridx] + k,
+                                np.full(len(ridx), MID_LEN0 + k),
+                                (lens[ridx].astype(np.int64) >> (8 * k))
+                                & 0xFF]))
+        pos += 4 * len_emit
+        ridx = np.flatnonzero(dup_emit)
+        ev.append(np.stack([pos[ridx], np.full(len(ridx), MID_DUP),
+                            dup[ridx]]))
+        pos += dup_emit
+        over = devtimer.put(np.concatenate(ev, axis=1).astype(np.int64),
+                            device)
+        mids = torch.empty(w, dtype=torch.int64, device=device)
+        syms = torch.empty(w, dtype=torch.int32, device=device)
+        mids[over[0]] = over[1]
+        syms[over[0]] = over[2].to(torch.int32)
+        # quality bytes: each kept record's bytes land as one run at its
+        # pos, in the plane's row-major order
+        if n_qual:
+            keep = mask if dup_d is None else mask & ~dup_d[:, None]
+            cell = torch.nonzero(keep.view(-1)).squeeze(1)
+            row = torch.div(cell, L, rounding_mode="floor")
+            qpos = devtimer.put(pos, device)
+            tgt = qpos[row] + (cell - row * L)
+            mids[tgt] = cj.view(-1)[cell]
+            syms[tgt] = qj.view(-1)[cell].to(torch.int32)
     return mids, syms, w - n_qual
+
+
+def _seq_planes(seqa: np.ndarray, starts: np.ndarray, boff_r: np.ndarray,
+                lens: np.ndarray, L: int, device: torch.device) -> dict:
+    """compute_contexts' sequence-conditioning arguments: bases[r, k] =
+    code of seq[start_r + boff_r + k] while k < len_r - boff_r, else 0,
+    looked up on `device` from the uploaded bytes; seq0, each record's
+    shift register seeded from its first boff_r bases."""
+    nrec = len(lens)
+    last = max(len(seqa) - 1, 0)
+    nb = np.maximum(lens.astype(np.int64) - boff_r, 0)
+    per = devtimer.put(np.stack([starts + boff_r, nb]), device)
+    cols = torch.arange(L, device=device)
+    src = (per[0][:, None] + cols[None, :]).clamp(max=last)
+    lut = devtimer.put(_BASE_LUT, device)
+    bases = torch.where(cols[None, :] < per[1][:, None],
+                        lut[devtimer.put(seqa, device)[src].to(torch.int64)],
+                        0)
+    # native seeds from seq[off+b] for ALL b < boff, even when the
+    # record is shorter than boff (it reads into the next record's
+    # bases in the concatenated buffer) -- native/fqzqual.cpp:727.
+    # Mirror that exactly; clamp only at the end of the whole buffer
+    # (the one case native leaves undefined).
+    seq0 = np.zeros(nrec, np.int64)
+    for k in range(int(boff_r.max(initial=0))):
+        bc = _BASE_LUT[seqa[np.minimum(starts + k, last)]].astype(np.int64)
+        seq0 = np.where(k < boff_r, (seq0 << 2) | bc, seq0)
+    return dict(bases=bases, seq0=devtimer.put(seq0, device))
 
 
 def prepare_fqz(qual: bytes, lens, flags, seq_buf: bytes | None,

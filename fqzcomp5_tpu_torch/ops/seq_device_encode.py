@@ -14,9 +14,10 @@ fqzcomp5.c:1073-1270) in the three-pass form:
 
 ``seq_contexts`` walks the read positions with all records of the block
 as one batch of torch ops on the device; ``build_events`` merges run,
-transition and base events into one stream in native encode order on
-the host.  Passes 2 and 3 run in ``adaptive_batch``; ``encode_payload``
-encodes one section through it (the host driver's per-block route).
+transition and base events into one stream in native encode order
+there too, the host working only per class run.  Passes 2 and 3 run in
+``adaptive_batch``; ``encode_payload`` encodes one section through it
+(the host driver's per-block route).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ for _i, _c in enumerate(b"ACGT"):
     _LUT[_c] = _i
 for _i, _c in enumerate(b"acgt"):
     _LUT[_c] = 0x80 + _i
+# each byte's class: 0 upper base, 1 lower base, 2 other
+_CLS = np.where(_LUT < 4, 0, np.where(_LUT >= 0x80, 1, 2))
 
 # model-family tags in the merged event stream
 FAM_SEQ = 0      # TinyModel<4> per k-mer context
@@ -73,86 +76,131 @@ def seq_contexts(codes: torch.Tensor, ctx_size: int):
     return tuple(outs)
 
 
+def _run_events(rcls: np.ndarray, rlen: np.ndarray, both_strands: int):
+    """Each class run's events, worked out per run on the host: a run
+    (of class rcls, rlen bytes) is its ceil-255 length chunks, its base
+    events (two a base in both-strands mode, the second update-only) or
+    literals, and the transition to the next run; a buffer that opens
+    lower/other opens with a zero-length run and a transition, as the
+    machine starts in kUpper.  Returns (chunk_off, body_off, mult, w,
+    small): each run's first chunk and first body event, events a byte,
+    the stream's length, and the opening and transition events as
+    (position, family, model id, symbol) columns."""
+    nr = len(rcls)
+    mult = np.where((rcls < 2) & bool(both_strands), 2, 1)
+    nch = rlen // 255 + 1
+    opening = 2 if rcls[0] != 0 else 0
+    per = nch + rlen * mult + (np.arange(nr) < nr - 1)
+    per[0] += opening
+    off = np.concatenate(([0], np.cumsum(per)))
+    chunk_off = off[:-1].copy()
+    chunk_off[0] += opening
+    body_off = chunk_off + nch
+    # a transition into class c from state s: 0 into upper, s == other
+    # into lower, 1 into other
+    state = np.concatenate(([0], rcls))
+    ncls = np.concatenate((rcls, [0]))
+    tsym = np.where(ncls == 0, 0, np.where(ncls == 1, state == 2, 1))
+    tpos = np.concatenate(([1], body_off + rlen * mult))
+    keep = np.arange(nr + 1) < nr          # no transition after the last
+    keep[0] = bool(opening)
+    small = [np.stack([tpos[keep], np.full(int(keep.sum()), FAM_STATE),
+                       state[keep], tsym[keep]])]
+    if opening:
+        small.append(np.array([[0], [FAM_WIDE], [0], [0]]))
+    return (chunk_off, body_off, mult, int(off[-1]),
+            np.concatenate(small, axis=1).astype(np.int64))
+
+
 def build_events(seq_buf: bytes, lens, both_strands: int, ctx_size: int,
                  device: torch.device):
-    """Merge the full event stream in native encode order, with pass 1
-    on `device`.  Returns (fam int8, mid int64, sym int32, upd bool)
-    numpy arrays; upd marks the both-strands update-only events."""
+    """Merge the full event stream in native encode order, on `device`:
+    pass 1's contexts are computed there and the stream written there
+    from them.  Returns (fam int8, mid int64, sym int32, upd bool)
+    tensors on `device`, upd marking the both-strands update-only
+    events, and the number of those.
+
+    The buffer's class runs are found on the device; only their bounds
+    come back, and the host works per run."""
     buf = np.frombuffer(seq_buf, np.uint8)
     lens = np.asarray(lens, np.uint32)
     n = len(buf)
     if n == 0:
-        return (np.zeros(0, np.int8), np.zeros(0, np.int64),
-                np.zeros(0, np.int32), np.zeros(0, bool))
-    code = _LUT[buf]
-    cls = np.where(code < 4, 0, np.where(code >= 0x80, 1, 2))
+        return (torch.zeros(0, dtype=torch.int8, device=device),
+                torch.zeros(0, dtype=torch.int64, device=device),
+                torch.zeros(0, dtype=torch.int32, device=device),
+                torch.zeros(0, dtype=torch.bool, device=device), 0)
 
-    # pass 1 on the device, records along rows (pad code 4 = non-base,
-    # contexts hold); in-record cells in row-major order are the
-    # stream order
+    # pass 1, records along rows (pad code 4 = non-base, contexts hold)
     L = int(lens.max())
     devtimer.count("pass1_cells", len(lens) * L)
     devtimer.count("pass1_symbols", n)
-    lens_d = torch.from_numpy(lens.astype(np.int64)).to(device)
-    mask = torch.arange(L, device=device)[None, :] < lens_d[:, None]
-    codes2d = torch.full((len(lens), L), 4, dtype=torch.int32, device=device)
-    codes2d[mask] = torch.from_numpy(code).to(device)
-    ctxf_f, b_f, ctxr_f, b2_f = (x[mask].cpu().numpy() for x in
-                                 seq_contexts(codes2d, ctx_size))
+    with devtimer.span("adaptive/pass1/walk"):
+        buf_d = devtimer.put(buf, device)
+        code = devtimer.put(_LUT, device)[buf_d.to(torch.int64)]
+        lens_d = devtimer.put(lens.astype(np.int64), device)
+        mask = torch.arange(L, device=device)[None, :] < lens_d[:, None]
+        codes2d = torch.full((len(lens), L), 4, dtype=torch.int32,
+                             device=device)
+        codes2d[mask] = code
+        ctx = seq_contexts(codes2d, ctx_size)
 
-    # maximal class runs over the FLAT buffer (they cross records)
-    bounds = np.flatnonzero(np.diff(cls)) + 1
-    rstarts = np.concatenate(([0], bounds))
-    rends = np.concatenate((bounds, [n]))
-    fam_l, mid_l, sym_l, upd_l = [], [], [], []
+    with devtimer.span("adaptive/pass1/merge"):
+        # maximal class runs over the FLAT buffer (they cross records)
+        cls = torch.where(code < 4, 0, torch.where(code >= 0x80, 1, 2))
+        bounds = devtimer.get(torch.nonzero(cls[1:] != cls[:-1])
+                              .squeeze(1) + 1)
+        rstart = np.concatenate(([0], bounds))
+        rlen = np.diff(np.concatenate((rstart, [n])))
+        rcls = _CLS[buf[rstart]]
+        chunk_off, body_off, mult, w, small = _run_events(rcls, rlen,
+                                                          both_strands)
+        n_upd = int(rlen[mult == 2].sum())
+        devtimer.count("merge_events", w)
+        nch = rlen // 255 + 1
+        runs = devtimer.put(np.stack([chunk_off, body_off - rstart * mult,
+                                      mult, rlen, rcls, nch,
+                                      np.cumsum(nch) - nch]), device)
+        fam = torch.empty(w, dtype=torch.int8, device=device)
+        mid = torch.empty(w, dtype=torch.int64, device=device)
+        sym = torch.empty(w, dtype=torch.int32, device=device)
+        upd = torch.zeros(w, dtype=torch.bool, device=device)
 
-    def emit(fam, mid, sym, upd=None):
-        fam_l.append(np.full(len(mid), fam, np.int8))
-        mid_l.append(np.asarray(mid, np.int64))
-        sym_l.append(np.asarray(sym, np.int32))
-        upd_l.append(np.zeros(len(mid), bool) if upd is None
-                     else np.asarray(upd, bool))
+        # the run-length chunks: 255 each, the last the rest
+        nc = int(nch.sum())
+        rid = torch.repeat_interleave(torch.arange(len(rlen), device=device),
+                                      runs[5], output_size=nc)
+        j = torch.arange(nc, device=device) - runs[6][rid]
+        at = runs[0][rid] + j
+        fam[at] = FAM_WIDE
+        mid[at] = runs[4][rid]
+        sym[at] = torch.where(j == runs[5][rid] - 1, runs[3][rid] % 255,
+                              255).to(torch.int32)
 
-    state = 0  # kUpper
-    first = True
-    for rs, re in zip(rstarts, rends):
-        rcls = int(cls[rs])
-        if first and rcls != 0:
-            # the machine starts in kUpper: a zero-length run plus a
-            # transition precede a buffer that opens lower/other
-            emit(FAM_WIDE, [state], [0])
-            tsym = (state == 2) if rcls == 1 else (0 if rcls == 0
-                                                   else 1)
-            emit(FAM_STATE, [state], [int(tsym)])
-            state = rcls
-        first = False
-        run = re - rs
-        chunks = [255] * (run // 255) + [run % 255]
-        emit(FAM_WIDE, [state] * len(chunks), chunks)
-        if rcls < 2:
-            if both_strands:
-                # base encode + shadow update interleave per byte
-                mid = np.empty(2 * run, np.int64)
-                sym = np.empty(2 * run, np.int32)
-                upd = np.zeros(2 * run, bool)
-                mid[0::2] = ctxf_f[rs:re]
-                sym[0::2] = b_f[rs:re]
-                mid[1::2] = ctxr_f[rs:re]
-                sym[1::2] = b2_f[rs:re]
-                upd[1::2] = True
-                emit(FAM_SEQ, mid, sym, upd)
-            else:
-                emit(FAM_SEQ, ctxf_f[rs:re], b_f[rs:re])
-        else:
-            emit(FAM_WIDE, [MID_LITERAL] * run, buf[rs:re])
-        if re < n:
-            ncls = int(cls[re])
-            tsym = 0 if ncls == 0 else ((state == 2) if ncls == 1
-                                        else 1)
-            emit(FAM_STATE, [state], [int(tsym)])
-            state = ncls
-    return (np.concatenate(fam_l), np.concatenate(mid_l),
-            np.concatenate(sym_l), np.concatenate(upd_l))
+        # one event a byte (two for a base in both-strands mode) at its
+        # run's body offset plus the byte's place in the run
+        rid = torch.zeros(n, dtype=torch.int64, device=device)
+        rid[1:] = torch.cumsum(cls[1:] != cls[:-1], 0)
+        at = runs[1][rid] + torch.arange(n, device=device) * runs[2][rid]
+        cell = torch.nonzero(mask.view(-1)).squeeze(1)
+        ctxf, b, ctxr, b2 = (x.view(-1)[cell] for x in ctx)
+        isbase = cls < 2
+        fam[at] = torch.where(isbase, FAM_SEQ, FAM_WIDE).to(torch.int8)
+        mid[at] = torch.where(isbase, ctxf.to(torch.int64), MID_LITERAL)
+        sym[at] = torch.where(isbase, b, buf_d.to(torch.int32))
+        if n_upd:
+            sh = at[isbase] + 1
+            fam[sh] = FAM_SEQ
+            mid[sh] = ctxr[isbase].to(torch.int64)
+            sym[sh] = b2[isbase]
+            upd[sh] = True
+
+        # the opening and the transitions between runs
+        small = devtimer.put(small, device)
+        fam[small[0]] = small[1].to(torch.int8)
+        mid[small[0]] = small[2]
+        sym[small[0]] = small[3].to(torch.int32)
+    return fam, mid, sym, upd, n_upd
 
 
 def encode_payload(seq_buf: bytes, lens, both_strands: int, ctx_size: int,

@@ -64,14 +64,15 @@ def evolve_grouped_np(g, run, device, rows, posmap, out):
 
 
 def pass2_np(preps, device):
-    """The batch's pass 2 by the numpy path: preps are _prep_job tuples
-    (header, fam, mid, sym, enc, meta).  Returns (cf, tot) int32 arrays
-    in event order, as DevTriples holds them."""
-    n_ev = [len(p[2]) for p in preps]
+    """The batch's pass 2 by the numpy path: preps are _prep_job's
+    Preps, their events brought to the host.  Returns (cf, tot) int32
+    arrays in event order, as DevTriples holds them."""
+    n_ev = [len(p.mid) for p in preps]
     jobvec = np.repeat(np.arange(len(preps), dtype=np.int64), n_ev)
-    fam = np.concatenate([p[1] for p in preps])
-    gmid = jobvec * JOB_OFF + np.concatenate([p[2] for p in preps])
-    sym = np.concatenate([p[3] for p in preps])
+    fam = np.concatenate([p.fam.cpu().numpy() for p in preps])
+    gmid = jobvec * JOB_OFF + np.concatenate([p.mid.cpu().numpy()
+                                              for p in preps])
+    sym = np.concatenate([p.sym.cpu().numpy() for p in preps])
     out = (np.zeros(len(fam), np.int32), np.zeros(len(fam), np.int32))
 
     def walk(fn, ms=None):
@@ -95,7 +96,7 @@ def pass2_np(preps, device):
             runs = [(walk(model_cuda.evolve_256,
                           np.full(len(rows), 256, np.int32)), rows)]
         else:
-            ms = _row_alphabets(g[0], [p[5] for p in preps])
+            ms = _row_alphabets(g[0], [p.meta for p in preps])
             runs = [(walk(model_cuda.evolve_256, ms), rows[ms > 128]),
                     (walk(model_cuda.evolve_128, ms), rows[ms <= 128])]
         for run, rr in runs:

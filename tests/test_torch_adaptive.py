@@ -171,7 +171,8 @@ def test_group_stream_torch_matches_group_stream(kind, qdt):
 
 
 def _pass2_preps(kind):
-    """_prep_job-like tuples of a batch whose events are _group_case's:
+    """Preps (as _prep_job gives them) of a batch whose events are
+    _group_case's:
     jobs by key // JOB_OFF (each job's events in stream order), spread
     over the four families, TinyModel symbols below their alphabet.
     "wide": "random" with a quarter of the events moved to the selector
@@ -190,9 +191,11 @@ def _pass2_preps(kind):
         sym[sel] = rng.integers(0, 200, int(sel.sum()))
         meta = (41, 200)
     job = ctx.astype(np.int64) // adaptive_batch.JOB_OFF
-    return [(b"", fam[job == j], mid[job == j], sym[job == j].astype(np.int32),
-             None, meta if j % 2 == 0 else None)
-            for j in range(int(job.max(initial=0)) + 1)]
+    return [adaptive_batch.Prep(
+        b"", _t(fam[job == j]), _t(mid[job == j]),
+        _t(sym[job == j].astype(np.int32)), None, int((job == j).sum()),
+        meta if j % 2 == 0 else None)
+        for j in range(int(job.max(initial=0)) + 1)]
 
 
 @pytest.mark.parametrize("kind", ["random", "hot", "equal", "single",
@@ -232,7 +235,7 @@ def test_device_pass2_matches_numpy_path(kind, monkeypatch):
 
 def test_device_pass2_refuses_symbols_past_a_byte():
     preps = _pass2_preps("random")
-    preps[0][3][5] = 256
+    preps[0].sym[5] = 256
     with pytest.raises(ValueError, match="exceed a byte"):
         adaptive_batch._evolve_families(
             preps, adaptive_batch.DevTriples(5000, CPU), CPU)
@@ -424,9 +427,11 @@ def test_build_stream_matches_jax(strat, with_seq, fixed):
     _, q, lens, flags, seq, _ = _fqz_case(9 + strat, fixed=fixed,
                                           with_seq=with_seq)
     _, P, sels = port_fqz.prepare_fqz(q, lens, flags, seq, strat)
-    got = port_fqz.build_stream(q, lens, sels, P, CPU, seq=seq)
+    mids, syms, n_over = port_fqz.build_stream(q, lens, sels, P, CPU,
+                                               seq=seq)
+    got = (mids.numpy(), syms.numpy(), n_over)
     want = fqz_device_encode.build_stream(q, lens, sels, P, seq=seq)
-    for a, b in zip(got, want):
+    for a, b in zip(got, want, strict=True):
         assert np.array_equal(a, b)
     if with_seq and strat == 3:
         assert P.bbits.any()   # seq conditioning took part
@@ -443,10 +448,10 @@ def test_seq_contexts_and_events_match_jax(slevel):
                               np.asarray(b).astype(np.int64))
     for both in (0, 1):
         _, seq, lens, _, _ = _seq_case(slevel + both)
-        got = port_seq.build_events(seq, lens, both, slevel, CPU)
+        got = port_seq.build_events(seq, lens, both, slevel, CPU)[:4]
         want = seq_device_encode.build_events(seq, lens, both, slevel)
-        for a, b in zip(got, want):
-            assert np.array_equal(a, b)
+        for a, b in zip(got, want, strict=True):
+            assert np.array_equal(a.numpy(), b)
 
 
 # ---------------------------------------------------------------------

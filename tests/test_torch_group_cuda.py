@@ -62,10 +62,14 @@ def test_device_pass2_on_the_card(jobs, n, nctx, sym_hi, fam):
         pytest.skip("needs a CUDA device")
     ctx, qm = _family(jobs, n, nctx, sym_hi, seed=jobs * n + sym_hi + fam)
     job = ctx // JOB_OFF
-    preps = [(b"", np.full(int((job == j).sum()), fam, np.int8),
-              ctx[job == j] % JOB_OFF, qm[job == j], None, (97, 3))
-             for j in range(jobs)]
     dev = torch.device("cuda")
+    preps = [adaptive_batch.Prep(
+        b"", torch.full((int((job == j).sum()),), fam, dtype=torch.int8,
+                        device=dev),
+        torch.from_numpy(ctx[job == j] % JOB_OFF).to(dev),
+        torch.from_numpy(qm[job == j]).to(dev), None,
+        int((job == j).sum()), (97, 3))
+        for j in range(jobs)]
     want = pass2_ref.pass2_np(preps, dev)
     got = adaptive_batch.DevTriples(n, dev)
     adaptive_batch._evolve_families(preps, got, dev)

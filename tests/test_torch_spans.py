@@ -33,7 +33,9 @@ ENCODE_SPANS = {
     "link/put", "link/get",
     "kernel/encode_walk"}
 ADAPTIVE_SPANS = {
-    "adaptive/pass1", "adaptive/group", "adaptive/evolve", "adaptive/rc",
+    "adaptive/pass1", "adaptive/pass1/params", "adaptive/pass1/walk",
+    "adaptive/pass1/merge", "adaptive/group", "adaptive/evolve",
+    "adaptive/rc",
     "driver/adaptive_small", "kernel/tiny_evolve", "kernel/evolve_128",
     "kernel/evolve_256", "kernel/rc_encode_walk"}
 DECODE_SPANS = {
@@ -189,7 +191,7 @@ def test_round_trip_spans_and_walk_symbols(tmp_path, on, preset):
         assert c["adaptive_jobs_device"] > 0 and c["adaptive_jobs_host"] > 0
         assert c["pass2_events"] > 0 and c["rc_chunks"] > 0
         assert (c["plane_events"] == c["group_events"]
-                == c["pass2_events"])
+                == c["merge_events"] == c["pass2_events"])
     assert dec.counts["host_sections"] >= 4
     tallied = {}
     for walk, _, syms, _ in seen.seen:
@@ -201,6 +203,71 @@ def test_round_trip_spans_and_walk_symbols(tmp_path, on, preset):
                 walk = k.removeprefix("walk_symbols/")
                 counted[walk] = counted.get(walk, 0) + v
     assert tallied and counted == tallied
+
+
+def _pass1_link_bytes(job) -> int:
+    """The bytes pass 1 moves for one job without sequence conditioning:
+    fqz, the records' lengths, parameter indices and selectors, the
+    quality bytes, the parameter tables, the overhead events (position,
+    model id, symbol) and the quality events' offsets (int64), and the
+    duplicate flags back; seq, the bases, the code table, the lengths,
+    the class runs' bounds back, seven int64s a run and four an opening
+    or transition event."""
+    from fqzcomp5_tpu_torch.ops import fqz_device_encode
+    from tests import pass1_ref
+
+    if job[0] == "fqz":
+        _, q, lens, flags, seq, strat = job
+        _, P, sels = fqz_device_encode.prepare_fqz(q, lens, flags, seq,
+                                                   strat)
+        assert not P.bbits.any()
+        n_over = pass1_ref.build_stream(q, lens, sels, P, CPU)[2]
+        R = len(lens)
+        tables = 8 * P.nparam * (3 * 256 + 1024 + 7)
+        return (24 * R + len(q) + tables + 24 * n_over + 8 * R
+                + (R if P.do_dedup.any() else 0))
+    _, seq, lens, _, _ = job
+    cls = np.minimum(np.frombuffer(seq, np.uint8) == ord("N"), 1)
+    nruns = 1 + int(np.count_nonzero(np.diff(cls)))
+    assert seq[:1] != b"N"       # no opening events
+    return (len(seq) + 4 * 256 + 8 * len(lens) + 8 * (nruns - 1)
+            + 56 * nruns + 32 * (nruns - 1))
+
+
+def test_pass1_spans_counters_and_link_bytes(on):
+    """One -5 batch, an fqz and a seq job: pass 1's three sub-spans nest
+    under it, it writes every pass-2 event on the device (merge_events
+    equals pass2_events), and the link counter holds exactly the bytes of
+    the arrays it moves."""
+    from fqzcomp5_tpu_torch.ops import adaptive_batch
+
+    rng = np.random.default_rng(5)
+    lens = np.full(120, 100, np.uint32)
+    q = (np.cumsum(rng.integers(-2, 3, 12000)) % 40 + 3).astype(np.uint8)
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 12000)].copy()
+    seq[[500, 501, 7000]] = ord("N")
+    jobs = [("fqz", q.tobytes(), lens, np.zeros(120, np.uint32), None, 1),
+            ("seq", seq.tobytes(), lens, 1, 12)]
+    want = sum(_pass1_link_bytes(j) for j in jobs)
+    on.reset()
+    with on.span("encode"):
+        preps = [adaptive_batch._prep_job(j, CPU) for j in jobs]
+    assert on.snapshot()["link_bytes"] == want
+    with on.span("encode"):
+        adaptive_batch.encode_adaptive_batch(jobs, CPU)
+    log = on.spans()
+    enc = log[-1]
+    assert enc.name == "encode"
+    assert enc.counts["merge_events"] == enc.counts["pass2_events"] == sum(
+        len(p.mid) for p in preps)
+    pass1 = {s.id for s in log if s.name == "adaptive/pass1"
+             and s.request == enc.id}
+    subs = [s for s in log if s.name.startswith("adaptive/pass1/")
+            and s.request == enc.id]
+    assert {s.name for s in subs} == {"adaptive/pass1/params",
+                                      "adaptive/pass1/walk",
+                                      "adaptive/pass1/merge"}
+    assert len(pass1) == 1 and all(s.parent in pass1 for s in subs)
 
 
 def test_verbose_report_times_each_section(tmp_path, monkeypatch, capsys):
