@@ -148,13 +148,15 @@ class _LazyO0:
             plane[b, :len(d)] = np.frombuffer(d, np.uint8)
         plane = plane.reshape(B, Tmax, 32)
         freqs = np.stack(freq_rows)
+        ranges = split_rows(device, B)
         devtimer.count("walk_symbols/encode_walk", int(lens.sum()))
+        devtimer.count("walk_steps/encode_walk", Tmax * len(ranges))
         self._lz = backend.LazyFlat.join([
             backend.encode_u8_lazy(
                 _to(plane[lo:hi], dev), _to(lens[lo:hi], dev),
                 tables_from_numpy(freqs[lo:hi], "freqs", shift=TF_SHIFT,
                                   device=dev), TF_SHIFT)
-            for dev, lo, hi in split_rows(device, B)])
+            for dev, lo, hi in ranges])
 
     @property
     def sizes(self) -> list[int]:
@@ -276,15 +278,17 @@ class _LazyO1:
                 flat[g, isz:] = _NOP_O1
         freqs = np.stack([preps[i][1] for i in idxs])  # (G, 256, 256)
         R0 = R0.view(np.int32)
+        ranges = split_rows(device, G)
         # the plane's slots that are not the sentinel
         devtimer.count("walk_symbols/encode_walk", 32 * sum(iszs))
+        devtimer.count("walk_steps/encode_walk", Tmax * len(ranges))
         lz = backend.LazyFlat.join([
             backend.encode_flat_lazy(
                 _to(flat[lo:hi], dev),
                 tables_from_numpy(freqs[lo:hi], "freqs", shift=shift,
                                   device=dev),
                 shift, R0=_to(R0[lo:hi], dev))
-            for dev, lo, hi in split_rows(device, G)])
+            for dev, lo, hi in ranges])
         heads = {i: preps[i][0] for i in idxs}
         self._groups.append((idxs, lz, heads, tailbs))
 
@@ -395,12 +399,14 @@ def decode_o0_batch(payloads: list[bytes], out_szs: list[int],
     t_real = np.array([sz // 32 for sz in out_szs], np.int32)
     Tmax = max(int(t_real.max()), 1)
     words, R0 = words.view(np.int16), R0.view(np.int32)
-    devtimer.count("walk_symbols/decode_bnd_o0" if tables == "boundary"
-                   else "walk_symbols/decode_o0", 32 * int(t_real.sum()))
+    walk = "decode_bnd_o0" if tables == "boundary" else "decode_o0"
+    ranges = split_rows(device, B)
+    devtimer.count("walk_symbols/" + walk, 32 * int(t_real.sum()))
+    devtimer.count("walk_steps/" + walk, Tmax * len(ranges))
     if tables == "boundary":
         tab, f0, S, packed = rans_bnd_torch.o0_tables(s3s)
     parts = []   # (syms, Rf) of each row range, on its device
-    for dev, lo, hi in split_rows(device, B):
+    for dev, lo, hi in ranges:
         args = (_to(words[lo:hi], dev), _to(R0[lo:hi], dev))
         if tables == "boundary":
             parts.append(rans_cuda_bnd.decode_bnd_o0(
@@ -471,10 +477,12 @@ def decode_o1_batch(payloads: list[bytes], out_szs: list[int],
         if dense:
             tab, alphabet, A, A1, last0 = \
                 rans_bnd_torch.build_o1_dense_tables(freqs, shift)
-        devtimer.count("walk_symbols/decode_dense_o1" if dense
-                       else "walk_symbols/decode_o1", 32 * int(t_real.sum()))
+        walk = "decode_dense_o1" if dense else "decode_o1"
+        ranges = split_rows(device, len(idxs))
+        devtimer.count("walk_symbols/" + walk, 32 * int(t_real.sum()))
+        devtimer.count("walk_steps/" + walk, Tmax * len(ranges))
         parts = []   # (syms, Rf, ptrf) of each row range, on its device
-        for dev, lo, hi in split_rows(device, len(idxs)):
+        for dev, lo, hi in ranges:
             args = (_to(words[lo:hi].view(np.int16), dev),
                     _to(R0[lo:hi].view(np.int32), dev))
             if dense:

@@ -128,12 +128,14 @@ def _row_alphabets(uniq: np.ndarray, metas) -> np.ndarray:
                     np.where(ulm == MID_SEL, msel[ujob], 2)).astype(np.int32)
 
 
-def _walk(walk, counter: str, nsym: int = 0):
+def _walk(walk, name: str, nsym: int = 0):
     """A run for fqz_model_torch.evolve_grouped: `walk` on a bucket plane
     (TinyModels of nsym symbols when nsym is given, else AdaptiveModels
-    of the rows' alphabets), its steps counted as `counter`."""
+    of the rows' alphabets), its events counted as walk_symbols/<name>
+    and the plane's width, its steps a lane, as walk_steps/<name>."""
     def run(sp, ct, ms, steps):
-        devtimer.count(counter, steps)
+        devtimer.count("walk_symbols/" + name, steps)
+        devtimer.count("walk_steps/" + name, sp.shape[1])
         return walk(sp, ct, nsym) if nsym else walk(sp, ct, ms)
     return run
 
@@ -172,11 +174,10 @@ def _evolve_families(preps, dev: DevTriples,
         which[bounds[F_T2]:bounds[F_N128]] = 1
         which[b128] = torch.where(alphabet[b128] > 128, 2, 3)
     devtimer.count("group_events", len(dev.cf))
-    e256 = _walk(model_cuda.evolve_256, "walk_symbols/evolve_256")
-    runs = [_walk(model_cuda.tiny_evolve, "walk_symbols/tiny_evolve", 4),
-            _walk(model_cuda.tiny_evolve, "walk_symbols/tiny_evolve", 2),
-            e256, _walk(model_cuda.evolve_128, "walk_symbols/evolve_128"),
-            e256]
+    e256 = _walk(model_cuda.evolve_256, "evolve_256")
+    runs = [_walk(model_cuda.tiny_evolve, "tiny_evolve", 4),
+            _walk(model_cuda.tiny_evolve, "tiny_evolve", 2),
+            e256, _walk(model_cuda.evolve_128, "evolve_128"), e256]
     fqz_model_torch.evolve_grouped(g, runs, which, alphabet, device, dev)
 
 
@@ -202,6 +203,7 @@ class _RcRange:
             self.cf, self.tot, off, devtimer.put(n.astype(np.int32), dev),
             self.state, self.cap)
         devtimer.count("walk_symbols/rc_encode_walk", int(n.sum()))
+        devtimer.count("walk_steps/rc_encode_walk", int(n.max()))
         devtimer.count("rc_chunks", 1)
 
     def collect(self) -> None:

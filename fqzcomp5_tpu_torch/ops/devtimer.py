@@ -46,7 +46,11 @@ Spans and counters name the host's work between the device's:
 - ``count(name, n)``: adds n to the counts of the request the thread's
   innermost open span belongs to (its root's record), e.g. the symbols
   a kernel wrapper's caller launches a walk over, counted on the host
-  beside the call, under ``walk_symbols/<walk>``.
+  beside the call, under ``walk_symbols/<walk>``, and beside it the
+  launch's serial steps a lane under ``walk_steps/<walk>``: the width
+  of its plane (the encode walk's, a model walk's, the range coder's
+  longest chunk) or a decode walk's ``T``, an int the host already
+  holds, so counting waits on nothing.
 - ``spans()``: a copy of the log, at most MAX_SPANS records, oldest
   first by closing time.  ``reset()`` leaves it alone.
 

@@ -3,9 +3,10 @@ count, current, spans) on the CPU: off, nothing is recorded and span is
 one shared null context; on, spans nest per thread, a pool thread's span
 takes the submitting span as its parent, each root opens a request whose
 counts the counters add to, the log is bounded and reset() leaves it.
-A -1 and a -5 round trip through the wave engine open every span of
-their path, and the kernel wrappers' walk_symbols counters equal the
-symbols the benchmark's launch tally counts from the same launches.
+A -1, a -3 and a -5 round trip through the wave engine open every span
+of their path, the kernel wrappers' walk_symbols counters equal the
+symbols the benchmark's launch tally counts from the same launches, and
+their walk_steps counters the steps a lane of those launches.
 The -v report of the wave engine gives each section real seconds."""
 
 import concurrent.futures as cf
@@ -143,18 +144,38 @@ def _fastq(path, nrec, seed):
     return path
 
 
-@pytest.mark.parametrize("preset", ["-1", "-5"])
-def test_round_trip_spans_and_walk_symbols(tmp_path, on, preset):
+def _launch_steps(walk: str, args: tuple) -> int:
+    """The serial steps a lane of one launch, from its wrapper's
+    arguments: the plane's width (the encode walk, the model walks), the
+    longest chunk (the range coder) or the decode walk's T."""
+    if walk == "rc_encode_walk":
+        return int(args[3].max())
+    if walk.startswith("decode_"):
+        return int(args[5] if walk == "decode_bnd_o0" else args[4])
+    return args[0].shape[1]
+
+
+@pytest.mark.parametrize("preset", ["-1", "-3", "-5"])
+def test_round_trip_spans_and_walk_symbols(tmp_path, on, monkeypatch,
+                                           preset):
     """264 records in 16 KB blocks: three trial blocks and a last one
     whose sections are under MIN_DEVICE (host codecs).  Every span of
     the path opens under its request, the candidates' bytes are
-    counted, and each walk's walk_symbols counter equals the symbols
-    gbench.tracing.Launches counts from the same launches."""
+    counted, and each walk's walk_symbols and walk_steps counters equal
+    the symbols gbench.tracing.Launches counts from the same launches
+    and the steps a lane read from their arguments."""
     sys.path.insert(0, os.path.join(ROOT, "gpubench"))
     try:
-        from gbench import tracing
+        from gbench import roofline, tracing
     finally:
         sys.path.remove(os.path.join(ROOT, "gpubench"))
+    steps = {}
+    work = roofline.work
+
+    def seen_work(walk, args, result):
+        steps[walk] = steps.get(walk, 0) + _launch_steps(walk, args)
+        return work(walk, args, result)
+    monkeypatch.setattr(roofline, "work", seen_work)
     src = _fastq(tmp_path / "in.fastq", 264, seed=7)
     arg, _, _ = cli.parse_args([preset, "-V"])
     arg.blk_size = 16_000
@@ -196,13 +217,15 @@ def test_round_trip_spans_and_walk_symbols(tmp_path, on, preset):
     tallied = {}
     for walk, _, syms, _ in seen.seen:
         tallied[walk] = tallied.get(walk, 0) + int(syms)
-    counted = {}
+    counted = {"walk_symbols": {}, "walk_steps": {}}
     for r in roots:
         for k, v in r.counts.items():
-            if k.startswith("walk_symbols/"):
-                walk = k.removeprefix("walk_symbols/")
-                counted[walk] = counted.get(walk, 0) + v
-    assert tallied and counted == tallied
+            kind, _, walk = k.partition("/")
+            if kind in counted:
+                counted[kind][walk] = counted[kind].get(walk, 0) + v
+    assert tallied and counted["walk_symbols"] == tallied
+    assert counted["walk_steps"] == steps
+    assert steps.keys() == tallied.keys()
 
 
 def _pass1_link_bytes(job) -> int:
